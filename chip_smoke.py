@@ -10,15 +10,31 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      per source, all at once) and report the build time and ptxas usage;
   3. every kernel on the card against its plain PyTorch version, at the main
      path's shapes for TPC-H SF 10: kernel, plain, library-call and bound
-     times, and the float sum run twice and compared byte for byte;
+     times, and the float sum run twice and compared byte for byte; the
+     counting rank at one rank's lineitem share (15 M rows, N = 4) and at
+     60 M, the partition histogram over SF 10's l_orderkey, both exact; then
+     ``skew_stats`` of SF 10's l_partkey over 8 partitions, the path that
+     launches the histogram;
   4. the main path: all 22 TPC-H queries at SF 1 through
      ``repro_torch.core.backend.run_local`` under both join methods, checked
      against the port's NumPy reference (row counts equal, rtol 1e-7), with
      the kernels' launch counters reset just before and read just after;
   5. all 22 queries at SF 10 (60 M lineitem rows resident on the card),
      under each join method one warm-up and the median of 3 timed runs per
-     query, peak device memory; the hash join's results checked against the
-     sorted join's, and Q1/Q6/Q13/Q15 against the reference.
+     query, peak device memory, and each query's device busy time from one
+     profiled run (sorted joins); the hash join's results checked against
+     the sorted join's, and Q1/Q6/Q13/Q15 against the reference;
+  6. the distributed path: all 22 queries at SF 1 through
+     ``run_distributed`` on a ThreadGroup of N ranks on the one card (N = 4
+     and 8 with sorted joins, N = 4 with hash joins), each equal to phase
+     4's reference with exchange counts equal to the plans' static counts,
+     narrow wire equal to wide byte for byte on Q9/Q10/Q13/Q18, launch
+     counters reset just before and read just after;
+  7. all 22 queries at SF 10 through ``run_distributed`` with N = 4 (sorted
+     joins): partition and upload time, one warm-up and the median of 3
+     timed runs per query, each query's device busy time from one profiled
+     run, peak device memory, each result equal to phase 5's.  The ranks' work is serialised on one card: these are times of
+     the distributed code path, not of a cluster.
 
 It prints the card line and a ``{"kernels": [...]}`` line before the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -68,6 +84,31 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_busy_ms(fn) -> float:
+    """Device time (ms) of everything ``fn`` ran on the card — kernels and
+    copies, summed over the device events of a ``torch.profiler`` trace (one
+    stream, so they never overlap).  Every query runs on the card, so a
+    trace with no device time means the profiler failed: that raises."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    if total <= 0:
+        raise RuntimeError("torch.profiler recorded no device time for a run "
+                           "that launched work on the card")
+    return total / 1e3
+
+
+def busy_line(label: str, busy: float, median_ms: float) -> str:
+    return (f"{label}: device busy {busy:.2f} ms of {median_ms:.2f} ms "
+            f"median, idle share {1 - busy / median_ms:.3f}")
 
 
 def bound_ms(nbytes: float) -> float:
@@ -215,6 +256,102 @@ def check_hash_insert(dev, n: int) -> dict:
     return result
 
 
+def check_counting_rank(dev) -> dict:
+    """The shuffle dispatch's rank at one rank's lineitem share (N = 4) and
+    at all of SF 10's lineitem, for N = 4 and 8 (parts = N + 1 with the
+    drop bucket); exact against the plain version."""
+    import torch
+    from repro_torch.kernels.radix_hist import ops, ref
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    entry = None
+    for n in (15_000_000, 60_000_000):
+        for parts in (5, 9):
+            dest = torch.randint(0, parts, (n,), generator=g, device=dev,
+                                 dtype=torch.int32)
+            slot, counts = ops.counting_rank(dest, parts)
+            want_slot, want_counts = ref.counting_rank_ref(dest, parts)
+            if not (torch.equal(slot, want_slot) and
+                    torch.equal(counts, want_counts)):
+                raise AssertionError(f"counting_rank n={n} parts={parts} "
+                                     f"differs from plain")
+            ms = time_ms(lambda: ops.counting_rank(dest, parts))
+            plain = time_ms(lambda: ref.counting_rank_ref(dest, parts),
+                            reps=2)
+            sort_ms = time_ms(lambda: torch.sort(dest, stable=True))
+            nbytes = n * 4 + n * 4 + parts * 4     # keys in, slots out
+            log(f"counting_rank n={n} parts={parts}: kernel {ms:.3f} ms, "
+                f"plain {plain:.3f} ms, bound {bound_ms(nbytes):.3f} ms; "
+                f"torch.sort(stable) {sort_ms:.3f} ms (the sort it "
+                f"replaces, no single call computes the rank); exact")
+            if (n, parts) == (15_000_000, 5):
+                entry = kernel_entry(
+                    "counting_rank", "src/repro_torch/kernels/csrc/radix_hist.cu",
+                    "src/repro/kernels/radix_hist/kernel.py:124", ms, plain,
+                    None, 0.0, nbytes)
+            del dest, slot, want_slot
+    return entry
+
+
+def check_radix_hist(dev, db) -> dict:
+    """Per-block histograms of SF 10's l_orderkey (int32), 8 partitions,
+    blocks of 2048 rows, hashed and not; exact against the plain version."""
+    import torch
+    from repro_torch.kernels.radix_hist import ops, ref
+    keys = torch.from_numpy(
+        db.tables["lineitem"]["l_orderkey"].astype("int32")).to(dev)
+    n, parts, blk = keys.shape[0], 8, 2048
+    entry = None
+    for hashed in (True, False):
+        got = ops.radix_hist(keys, parts, blk=blk, hashed=hashed)
+        want = ref.radix_hist_plain(keys, parts, blk, hashed=hashed)
+        if not torch.equal(got, want):
+            raise AssertionError(f"radix_hist hashed={hashed} differs from "
+                                 f"plain")
+        nb = got.shape[0]
+        ms = time_ms(lambda: ops.radix_hist(keys, parts, blk=blk,
+                                            hashed=hashed))
+        plain = time_ms(lambda: ref.radix_hist_plain(keys, parts, blk,
+                                                     hashed=hashed))
+        flat = (torch.arange(n, device=dev) // blk) * parts + \
+            ref.bin_of(keys, parts, hashed)
+        lib = time_ms(lambda: torch.bincount(flat, minlength=nb * parts))
+        nbytes = n * 4 + nb * parts * 4
+        log(f"radix_hist   n={n} parts={parts} blk={blk} hashed={hashed}: "
+            f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bincount (binned "
+            f"beforehand) {lib:.3f} ms, bound {bound_ms(nbytes):.3f} ms; "
+            f"exact")
+        if hashed:
+            entry = kernel_entry(
+                "radix_hist", "src/repro_torch/kernels/csrc/radix_hist.cu",
+                "src/repro/kernels/radix_hist/kernel.py:59", ms, plain, lib,
+                0.0, nbytes)
+    return entry
+
+
+def run_skew_path(dev, db) -> dict[str, int]:
+    """``skew_stats`` of SF 10's l_partkey over 8 partitions: the path that
+    runs the partition histogram."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.radix_hist import ops, ref
+    keys = torch.from_numpy(
+        db.tables["lineitem"]["l_partkey"].astype("int32")).to(dev)
+    K.reset_launches()
+    st = ops.skew_stats(keys, 8)
+    per = st["per_partition"].tolist()
+    counts = dict(K.launches)
+    want = ref.radix_hist_plain(keys, 8, 2048).sum(dim=0).tolist()
+    if per != want or sum(per) != keys.shape[0]:
+        raise AssertionError("skew_stats totals differ from the plain "
+                             "version's or from the row count")
+    log(f"skew_stats SF {SF_TIMED} l_partkey, 8 partitions: per partition "
+        f"{[int(x) for x in per]}, max/mean {float(st['imbalance']):.6f}; "
+        f"launches {json.dumps(counts)}")
+    if counts["radix_hist"] <= 0:
+        raise AssertionError("skew_stats did not launch radix_hist")
+    return counts
+
+
 def check_hash_probe(dev, n: int, m: int) -> dict:
     import torch
     from repro_torch.kernels.hash_probe import ops, ref
@@ -276,8 +413,9 @@ def compare(got: dict, want: dict, label: str) -> None:
                                    rtol=1e-7, err_msg=f"{label} {k}")
 
 
-def run_main_path(dev) -> dict[str, int]:
-    import torch
+def run_main_path(dev):
+    """Phase 4.  Returns the launch counts, the SF 1 database and the
+    reference's results on it."""
     from repro_torch import kernels as K
     from repro_torch.core import backend as B
     from repro_torch.data import tpch
@@ -300,32 +438,29 @@ def run_main_path(dev) -> dict[str, int]:
     counts = dict(K.launches)
     log(f"launches on the main path (SF {SF_MAIN}, 22 queries x 2 joins): "
         f"{json.dumps(counts)}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    local = ("segsum_sum", "segsum_minmax", "hash_insert", "hash_probe64")
+    missing = [k for k in local if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    del db
-    torch.cuda.empty_cache()
-    return counts
+    return counts, db, refs
 
 
-def run_timed(dev) -> None:
+def run_timed(dev, db) -> dict:
+    """Phase 5.  Returns the sorted-join results per query."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.core import backend as B
-    from repro_torch.data import tpch
     from repro_torch.queries import QUERIES
-    t0 = time.perf_counter()
-    db = tpch.generate(SF_TIMED, seed=SEED)
     t1 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     B.device_tables(db, dev)
     torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
     resident = torch.cuda.memory_allocated(dev)
-    log(f"SF {SF_TIMED}: generated in {t1 - t0:.1f} s, "
-        f"{len(db.tables['lineitem']['l_orderkey'])} lineitem rows, "
-        f"{resident / 1e9:.2f} GB resident after upload ({t2 - t1:.1f} s)")
+    log(f"SF {SF_TIMED}: {len(db.tables['lineitem']['l_orderkey'])} lineitem "
+        f"rows, {resident / 1e9:.2f} GB resident after upload "
+        f"({t2 - t1:.1f} s)")
     medians = {jm: {} for jm in ("sorted", "hash")}
     results, launches = {}, {}
     for jm, times in medians.items():
@@ -345,6 +480,11 @@ def run_timed(dev) -> None:
             times[q] = statistics.median(runs)
         launches[jm] = dict(K.launches)
     peak = torch.cuda.max_memory_allocated(dev)
+    for q in sorted(QUERIES):
+        busy = device_busy_ms(lambda: B.run_local(QUERIES[q], db,
+                                                  device=dev))
+        log(busy_line(f"SF {SF_TIMED} q{q} join=sorted", busy,
+                      medians["sorted"][q]))
     lines = [f"SF {SF_TIMED} q{q}: median of {REPS}, join=sorted "
              f"{medians['sorted'][q]:.2f} ms, join=hash "
              f"{medians['hash'][q]:.2f} ms" for q in sorted(QUERIES)]
@@ -362,6 +502,101 @@ def run_timed(dev) -> None:
         compare(results[q], want, f"SF {SF_TIMED} q{q}")
         log(f"SF {SF_TIMED} q{q} equals the reference "
             f"(reference {time.perf_counter() - s:.1f} s)")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the distributed path
+# ---------------------------------------------------------------------------
+
+def run_distributed_path(dev, db, refs) -> dict[str, int]:
+    """Phase 6: all 22 queries at SF 1 through run_distributed on a
+    ThreadGroup on the one card.  Returns the launch counts of the phase."""
+    from repro_torch import kernels as K
+    from repro_torch.core import backend as B
+    from repro_torch.queries import QUERIES
+    K.reset_launches()
+    narrow = {}
+    for n, jm in ((4, "sorted"), (8, "sorted"), (4, "hash")):
+        t0 = time.perf_counter()
+        for q in sorted(QUERIES):
+            got, stats, overflow = B.run_distributed(
+                QUERIES[q], db, n, join_method=jm, device=dev)
+            label = f"SF {SF_MAIN} N={n} q{q} join={jm}"
+            if overflow:
+                raise AssertionError(f"{label}: capacity overflow")
+            compare(got, refs[q], label)
+            if stats.counts() != QUERIES[q].static_counts():
+                raise AssertionError(f"{label}: exchanges {stats.counts()} "
+                                     f"!= static {QUERIES[q].static_counts()}")
+            if (n, jm) == (4, "sorted"):
+                narrow[q] = got
+        log(f"SF {SF_MAIN} distributed N={n} join={jm}: 22 queries equal the "
+            f"reference, exchange counts equal the static counts "
+            f"({time.perf_counter() - t0:.1f} s with the first upload)")
+    for q in (9, 10, 13, 18):
+        wide, _, _ = B.run_distributed(QUERIES[q], db, 4, device=dev,
+                                       wire_format="wide")
+        if set(wide) != set(narrow[q]) or any(
+                wide[k].tobytes() != narrow[q][k].tobytes() for k in wide):
+            raise AssertionError(f"SF {SF_MAIN} N=4 q{q}: narrow wire differs "
+                                 f"from wide")
+    log(f"SF {SF_MAIN} distributed N=4: narrow wire equals wide byte for byte "
+        f"on Q9, Q10, Q13, Q18")
+    counts = dict(K.launches)
+    log(f"launches on the distributed path (SF {SF_MAIN}, 22 queries x 3 "
+        f"runs + 4 wide): {json.dumps(counts)}")
+    path = ("segsum_sum", "segsum_minmax", "hash_insert", "hash_probe64",
+            "counting_rank")
+    missing = [k for k in path if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the distributed "
+                             f"path: {missing}")
+    return counts
+
+
+def run_distributed_timed(dev, db, results) -> None:
+    """Phase 7: all 22 queries at SF 10 through run_distributed, N = 4."""
+    import torch
+    from repro_torch.core import backend as B
+    from repro_torch.core import planner
+    from repro_torch.queries import QUERIES
+    n = 4
+    planner.invalidate_stats(db)        # frees phase 5's resident tables
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    B.device_shards(db, dev, n)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    resident = torch.cuda.memory_allocated(dev)
+    log(f"SF {SF_TIMED} distributed N={n}: partitioned and uploaded in "
+        f"{t1 - t0:.1f} s, {resident / 1e9:.2f} GB resident")
+    medians = {}
+    for q in sorted(QUERIES):
+        got, _, overflow = B.run_distributed(QUERIES[q], db, n,
+                                             device=dev)        # warm-up
+        if overflow:
+            raise AssertionError(f"SF {SF_TIMED} N={n} q{q}: overflow")
+        compare(got, results[q], f"SF {SF_TIMED} N={n} q{q} vs run_local")
+        runs = []
+        for _ in range(REPS):
+            s = time.perf_counter()
+            B.run_distributed(QUERIES[q], db, n, device=dev)
+            runs.append((time.perf_counter() - s) * 1e3)
+        medians[q] = statistics.median(runs)
+        log(f"SF {SF_TIMED} distributed N={n} q{q}: median of {REPS} "
+            f"{medians[q]:.2f} ms")
+        busy = device_busy_ms(lambda: B.run_distributed(QUERIES[q], db, n,
+                                                        device=dev))
+        log(busy_line(f"SF {SF_TIMED} distributed N={n} q{q}", busy,
+                      medians[q]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"SF {SF_TIMED} distributed N={n} join=sorted: total of medians "
+        f"{sum(medians.values()):.1f} ms; peak device memory "
+        f"{peak / 1e9:.2f} GB; every result equals run_local's (ranks "
+        f"serialised on one card, not a cluster's times)")
 
 
 def main() -> int:
@@ -390,17 +625,32 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    from repro_torch.data import tpch
+    t0 = time.perf_counter()
+    db10 = tpch.generate(SF_TIMED, seed=SEED)
+    log(f"SF {SF_TIMED}: generated in {time.perf_counter() - t0:.1f} s")
+
     n_li = 60_000_000          # SF 10 lineitem rows
     entries = check_segsum(dev, n_li)
     entries.append(check_hash_insert(dev, 1_500_000))
     entries.append(check_hash_probe(dev, n_li, 15_000_000))
+    entries.append(check_counting_rank(dev))
+    entries.append(check_radix_hist(dev, db10))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    skew_counts = run_skew_path(dev, db10)
 
-    counts = run_main_path(dev)
+    counts, db1, refs = run_main_path(dev)
+    results = run_timed(dev, db10)
+    dist_counts = run_distributed_path(dev, db1, refs)
+    del db1
+    run_distributed_timed(dev, db10, results)
+    # each kernel's launches on the path that runs it: the local main path,
+    # the distributed path (the counting rank), the skew statistics
     for e in entries:
-        e["launches"] = counts[e["name"]]
-    run_timed(dev)
+        e["launches"] = {"counting_rank": dist_counts,
+                         "radix_hist": skew_counts}.get(e["name"],
+                                                        counts)[e["name"]]
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.0f} s")
     print(card)

@@ -1,16 +1,16 @@
-"""Execution backends for tensor query plans (single-device slice).
+"""Execution backends for tensor query plans.
 
-Queries are written once against the Context API and run on two engines:
+Queries are written once against the Context API and run on three engines:
 
   * :class:`RefContext`   — NumPy oracle / CPU baseline (exact shapes), the
     port's own copy of the reference package's.
   * :class:`LocalContext` — one device, PyTorch, static shapes, exchanges
     are identity (counted and logged so plan statistics — paper Table 4 —
     and per-exchange wire bytes come out as on a cluster).
-
-The distributed context, ``partition_database`` and ``run_distributed`` of
-``repro.core.backend`` land with the distributed slice; ``PARTITION_KEYS``
-is here already because the planner derives placement from it.
+  * :class:`DistContext`  — one per rank of a rank group
+    (:mod:`repro_torch.core.comm`); exchange calls are real collectives
+    (the paper's distributed TQP model §2.4: every rank runs the same tensor
+    program on its partition; no process coordinates them).
 
 ``join_method`` selects the join engine: ``"sorted"`` (searchsorted probe) or
 ``"hash"`` (bucket table probed by the ``hash_probe`` kernel); both give
@@ -29,6 +29,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from . import comm
 from . import exchange as ex
 from . import planner
 from . import reference as ref
@@ -38,8 +39,10 @@ from .planner import lift_f64
 from .table import Database, Table, from_numpy, resolve_device, to_numpy
 
 __all__ = [
-    "PlanStats", "RefContext", "LocalContext", "run_reference", "run_local",
-    "device_tables", "PARTITION_KEYS",
+    "PlanStats", "RefContext", "LocalContext", "DistContext",
+    "run_reference", "run_local", "run_distributed",
+    "device_tables", "device_shards", "partition_database",
+    "hash_partition_np", "PARTITION_KEYS",
 ]
 
 _YEAR_LUT = None
@@ -53,13 +56,6 @@ def _year_lut() -> np.ndarray:
             np.datetime64("1970-01-01")
         _YEAR_LUT = d.astype("datetime64[Y]").astype(np.int64) + 1970
     return _YEAR_LUT
-
-
-def _np_dtype(dt) -> np.dtype:
-    """numpy dtype of a numpy or torch dtype (the wire log is host math)."""
-    if isinstance(dt, torch.dtype):
-        return torch.empty(0, dtype=dt).numpy().dtype
-    return np.dtype(dt)
 
 
 @dataclasses.dataclass
@@ -95,6 +91,24 @@ def _expand_avg(aggs):
     return expanded, post
 
 
+def _finish_avg(out, avg_post):
+    """Each avg of ``avg_post`` as sum / max(count, 1), in float64 for an
+    integer sum, in place of its (sum, count) pair.  ``out`` is a Table or
+    a dict of torch or numpy values."""
+    for name in avg_post:
+        s, c = out[f"__{name}_s"], out[f"__{name}_c"]
+        if isinstance(s, torch.Tensor):
+            v = lift_f64(s) / torch.clamp(c, min=1)
+        else:
+            v = s / np.maximum(c, 1)
+        if isinstance(out, Table):
+            out = out.replace(**{name: v}).drop(f"__{name}_s", f"__{name}_c")
+        else:
+            out[name] = v
+            del out[f"__{name}_s"], out[f"__{name}_c"]
+    return out
+
+
 class _BaseContext:
     """Shared bookkeeping + derived helpers.
 
@@ -128,7 +142,7 @@ class _BaseContext:
         """Per-row wire descriptor of an exchange payload, equal to the
         IR-derived static report (``planner.static_wire_stats``)."""
         names = sorted(t) if isinstance(t, dict) else t.names
-        dtypes = {n: _np_dtype(t[n].dtype) for n in names}
+        dtypes = {n: wi.np_dtype(t[n].dtype) for n in names}
         if narrow is None:
             narrow = self.wire_narrow
         fmt = wi.plan_wire_format(names, dtypes, bounds=wire, narrow=narrow)
@@ -279,20 +293,14 @@ class RefContext(_BaseContext):
         elif exchange == "gather":
             kind = "gather" if final else "broadcast"
             self._count(kind, self._wire_entry(kind, out, wire))
-        for name in avg_post:
-            out[name] = out[f"__{name}_s"] / np.maximum(out[f"__{name}_c"], 1)
-            del out[f"__{name}_s"], out[f"__{name}_c"]
-        return out
+        return _finish_avg(out, avg_post)
 
     def agg_scalar(self, t, aggs):
         self._count("allreduce")
         aggs, avg_post = _expand_avg(list(aggs))
         g = ref.group_aggregate(t, [], _eval_aggs(t, aggs))
         out = {k: (v[0] if len(v) else np.asarray(0.0)) for k, v in g.items()}
-        for name in avg_post:
-            out[name] = out[f"__{name}_s"] / max(out[f"__{name}_c"], 1)
-            del out[f"__{name}_s"], out[f"__{name}_c"]
-        return out
+        return _finish_avg(out, avg_post)
 
     def shuffle(self, t, key, wire=None):
         self._count("shuffle", self._wire_entry("shuffle", t, wire))
@@ -423,37 +431,43 @@ class LocalContext(_BaseContext):
         when ``groups_hint`` is claimed but ``key_bits`` is unprovable); the
         dictionary scales with the runner's capacity factor."""
         aggs, avg_post = _expand_avg(list(aggs))
-        out, ov = rel.group_aggregate(t, keys, _eval_aggs(t, aggs),
-                                      key_bits=key_bits, method=method,
-                                      groups_hint=groups_hint,
-                                      hash_factor=self.capacity_factor,
-                                      return_overflow=True)
-        self.overflow = self.overflow | ov
-        if groups_hint is not None:
-            out, ov = rel.static_shrink(out, min(out.capacity, groups_hint))
-            self.overflow = self.overflow | ov
+        out = self._partial(t, keys, aggs, key_bits, method, groups_hint)
         # logged after the partial, where the distributed engine exchanges
         if exchange == "shuffle":
             self._count("shuffle", self._wire_entry("shuffle", out, wire))
         elif exchange == "gather":
             kind = "gather" if final else "broadcast"
             self._count(kind, self._wire_entry(kind, out, wire))
-        for name in avg_post:
-            cnt = torch.clamp(out[f"__{name}_c"], min=1)
-            out = out.replace(**{name: lift_f64(out[f"__{name}_s"]) / cnt})
-            out = out.drop(f"__{name}_s", f"__{name}_c")
+        return _finish_avg(out, avg_post)
+
+    def _aggregate(self, t, keys, aggs, key_bits, method, groups_hint):
+        """``rel.group_aggregate`` of evaluated ``aggs``, its dictionary
+        scaled by the capacity factor; a lying hint sets ``overflow``."""
+        out, ov = rel.group_aggregate(t, keys, aggs, key_bits=key_bits,
+                                      method=method, groups_hint=groups_hint,
+                                      hash_factor=self.capacity_factor,
+                                      return_overflow=True)
+        self.overflow = self.overflow | ov
         return out
+
+    def _partial(self, t, keys, aggs, key_bits, method, groups_hint):
+        """The partial aggregate of this rank's rows, shrunk to
+        ``groups_hint`` rows before any exchange moves it."""
+        out = self._aggregate(t, keys, _eval_aggs(t, aggs), key_bits, method,
+                              groups_hint)
+        if groups_hint is not None:
+            out, ov = rel.static_shrink(out, min(out.capacity, groups_hint))
+            self.overflow = self.overflow | ov
+        return out
+
+    def _scalar_partials(self, t, aggs) -> dict:
+        g = rel.group_aggregate(t, [], _eval_aggs(t, aggs))
+        return {name: g[name][0] for name in g.names}
 
     def agg_scalar(self, t, aggs):
         self._count("allreduce")
         aggs, avg_post = _expand_avg(list(aggs))
-        g = rel.group_aggregate(t, [], _eval_aggs(t, aggs))
-        out = {name: g[name][0] for name in g.names}
-        for name in avg_post:
-            out[name] = lift_f64(out[f"__{name}_s"]) / \
-                torch.clamp(out[f"__{name}_c"], min=1)
-            del out[f"__{name}_s"], out[f"__{name}_c"]
-        return out
+        return _finish_avg(self._scalar_partials(t, aggs), avg_post)
 
     def shuffle(self, t, key, wire=None):
         self._count("shuffle", self._wire_entry("shuffle", t, wire))
@@ -485,6 +499,135 @@ class LocalContext(_BaseContext):
 
     def nrows(self, t):
         return t.count
+
+
+# ===========================================================================
+# Distributed backend (one context per rank of a rank group)
+# ===========================================================================
+
+_MERGE = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
+
+
+class DistContext(LocalContext):
+    """One rank's engine: exchange calls become collectives over ``group``.
+
+    ``corrupt`` collects the wire checksums' verdicts (a received block that
+    fails its integrity word); ``overflow`` as in :class:`LocalContext`,
+    plus shuffle buckets past their capacity and narrowed lanes out of
+    bounds."""
+    distributed = True
+
+    def __init__(self, db, tables: dict[str, Table], device: torch.device,
+                 group, capacity_factor=2.0, packed_exchange=True,
+                 join_method: str = "sorted", wire_format: str | None = None):
+        super().__init__(db, tables, device, capacity_factor, join_method,
+                         wire_format)
+        self.group = group
+        self.N = group.size
+        self.packed = packed_exchange
+        self.corrupt = torch.zeros((), dtype=torch.bool, device=self.device)
+
+    def _cap_per_dest(self, t: Table) -> int:
+        return max(8, math.ceil(t.capacity * self.capacity_factor / self.N))
+
+    # -- exchanges ----------------------------------------------------------
+    def shuffle(self, t, key, wire=None):
+        self._count("shuffle")
+        keyv = t[key] if isinstance(key, str) else self._key(t, key)
+        out, ov, cr, _, stats = ex.shuffle(
+            t, keyv, self.group, self._cap_per_dest(t), packed=self.packed,
+            wire=wire, narrow=self.wire_narrow)
+        self.stats.log.append(stats)
+        self.overflow = self.overflow | ov
+        self.corrupt = self.corrupt | cr
+        return out
+
+    def broadcast(self, t, p2p=False, wire=None):
+        self._count("broadcast_p2p" if p2p else "broadcast")
+        if p2p:
+            out, stats = ex.broadcast_table_p2p(t, self.group)
+        else:
+            out, ov, cr, stats = ex.broadcast_table(
+                t, self.group, packed=self.packed, wire=wire,
+                narrow=self.wire_narrow)
+            self.overflow = self.overflow | ov
+            self.corrupt = self.corrupt | cr
+        self.stats.log.append(stats)
+        return out
+
+    # -- distributed aggregation --------------------------------------------
+    def group_by(self, t, keys, aggs, exchange="local", final=False,
+                 groups_hint=None, key_bits=None, wire=None, method="auto"):
+        """groups_hint: static bound on distinct groups — shrinks the partial
+        aggregate BEFORE the exchange, so it moves O(groups), not O(scan
+        capacity).  key_bits / method: the per-rank partial and the
+        post-exchange merge run the same sortless path.  wire: provable
+        (lo, hi) bounds per partial column for the narrow wire format."""
+        aggs, avg_post = _expand_avg(list(aggs))
+        partial = self._partial(t, keys, aggs, key_bits, method, groups_hint)
+        if exchange == "local":
+            out = partial
+        else:
+            merge = [(name, _MERGE[op], name) for name, op, _ in aggs]
+            if exchange == "shuffle":
+                self._count("shuffle")
+                keyv = rel.combine_keys([partial[k] for k in keys],
+                                        bits=key_bits) if len(keys) > 1 \
+                    else partial[keys[0]]
+                moved, ov, cr, _, stats = ex.shuffle(
+                    partial, keyv, self.group, self._cap_per_dest(partial),
+                    packed=self.packed, wire=wire, narrow=self.wire_narrow)
+                self.stats.log.append(stats)
+            elif exchange == "gather":
+                kind = "gather" if final else "broadcast"
+                self._count(kind)
+                moved, ov, cr, stats = ex.broadcast_table(
+                    partial, self.group, packed=self.packed, wire=wire,
+                    narrow=self.wire_narrow)
+                self.stats.log.append(dataclasses.replace(stats, kind=kind))
+            else:
+                raise ValueError(exchange)
+            self.overflow = self.overflow | ov
+            self.corrupt = self.corrupt | cr
+            # the merge reuses the same provable widths (or the same
+            # dictionary bound): sortless on BOTH sides of the exchange
+            out = self._aggregate(moved, keys, merge, key_bits, method,
+                                  groups_hint)
+        return _finish_avg(out, avg_post)
+
+    def agg_scalar(self, t, aggs):
+        self._count("allreduce")
+        aggs, avg_post = _expand_avg(list(aggs))
+        ops = {name: _MERGE[op] for name, op, _ in aggs}
+        out = ex.partial_to_global(self._scalar_partials(t, aggs), ops,
+                                   self.group)
+        return _finish_avg(out, avg_post)
+
+    def finalize(self, t, sort_keys=None, limit=None, replicated=False,
+                 wire=None):
+        """Final result collection: local order/limit, gather, global order.
+
+        ``replicated=True`` marks tables already merged on every rank (e.g.
+        after group_by(exchange='gather')) — no further collection needed."""
+        if not replicated:
+            self._count("gather")
+            if sort_keys:
+                t = rel.sort_by(t, sort_keys)
+            if limit is not None:
+                t = rel.limit(t, limit)   # local top-k before the gather
+            t, ov, cr, stats = ex.broadcast_table(
+                t, self.group, packed=self.packed, wire=wire,
+                narrow=self.wire_narrow)
+            self.overflow = self.overflow | ov
+            self.corrupt = self.corrupt | cr
+            self.stats.log.append(dataclasses.replace(stats, kind="gather"))
+        if sort_keys:
+            t = rel.sort_by(t, sort_keys)
+        else:
+            t = rel.ensure_compact(t)
+        if limit is not None:
+            t = rel.limit(t, limit)
+        return t
 
 
 # ===========================================================================
@@ -573,3 +716,155 @@ PARTITION_KEYS = {
     "nation": None,      # replicated
     "region": None,      # replicated
 }
+
+
+# -- host-side partitioning (paper §4.3) ------------------------------------
+
+_C1 = np.uint64(0xFF51AFD7ED558CCD)
+_C2 = np.uint64(0xC4CEB9FE1A85EC53)
+
+
+def hash_partition_np(key: np.ndarray, n: int) -> np.ndarray:
+    """splitmix64 finalizer — must match relational.hash_partition_ids."""
+    with np.errstate(over="ignore"):
+        k = key.astype(np.uint64)
+        k = (k ^ (k >> np.uint64(33))) * _C1
+        k = (k ^ (k >> np.uint64(33))) * _C2
+        k = k ^ (k >> np.uint64(33))
+        return (k % np.uint64(n)).astype(np.int32)
+
+
+def partition_database(db: Database, n: int,
+                       partition_keys: dict | None = None,
+                       ) -> tuple[dict[str, dict], dict[str, int]]:
+    """Host-side partitioning -> per-table (stacked shards dict, per-shard cap).
+
+    Columns come shaped (n*cap,), rank d's rows at ``[d*cap, d*cap +
+    count_d)``, and ``__count`` shaped (n,).  Replicated tables (key None)
+    appear whole in every shard — the standard treatment for tiny dimension
+    tables.  The per-shard capacity is a multiple of 8 over the largest
+    shard, as in the reference, so every exchange is sized alike.
+    """
+    pk = dict(PARTITION_KEYS)
+    if partition_keys:
+        pk.update(partition_keys)
+    out, caps = {}, {}
+    for name, t in db.tables.items():
+        key = pk.get(name)
+        if key is None:
+            nrows = len(next(iter(t.values())))
+            masks = [slice(None)] * n
+            counts = [nrows] * n
+        else:
+            dest = hash_partition_np(np.asarray(t[key]), n)
+            masks = [dest == d for d in range(n)]
+            counts = [int(m.sum()) for m in masks]
+        cap = max(8, int(math.ceil(max(counts) / 8)) * 8)
+        cols = {}
+        for cname, v in t.items():
+            stacked = np.zeros((n * cap,), dtype=v.dtype)
+            for d, m in enumerate(masks):
+                stacked[d * cap: d * cap + counts[d]] = v[m]
+            cols[cname] = stacked
+        cols["__count"] = np.array(counts, dtype=np.int32)
+        out[name] = cols
+        caps[name] = cap
+    return out, caps
+
+
+_DEVICE_SHARDS = "_device_shards"
+
+
+def device_shards(db: Database, device: torch.device, n: int,
+                  partition_keys: dict | None = None,
+                  ranks=None) -> dict[int, dict[str, Table]]:
+    """``db`` partitioned over ``n`` ranks: rank -> its device Tables, for
+    the ``ranks`` this process holds (default all).
+
+    Uploaded once per rank and cached on ``db`` per (device, n, partition
+    keys); dropped by ``planner.invalidate_stats`` with the planner's own
+    caches."""
+    cache = db.__dict__.setdefault(_DEVICE_SHARDS, {})
+    key = (str(device), n, tuple(sorted((partition_keys or {}).items())))
+    held = cache.setdefault(key, {})
+    todo = [d for d in (range(n) if ranks is None else ranks)
+            if d not in held]
+    if todo:
+        sharded, caps = partition_database(db, n, partition_keys)
+        for d in todo:
+            held[d] = {}
+            for name, cols in sharded.items():
+                lo, hi = d * caps[name], (d + 1) * caps[name]
+                held[d][name] = Table(
+                    {c: torch.from_numpy(v[lo:hi]).to(device)
+                     for c, v in cols.items() if c != "__count"},
+                    torch.tensor(int(cols["__count"][d]), dtype=torch.int32,
+                                 device=device))
+    return held
+
+
+def _drop_device_shards(db) -> None:
+    db.__dict__.pop(_DEVICE_SHARDS, None)
+
+
+planner.register_invalidation(_drop_device_shards)
+
+
+def _warm_planner(query_fn, db: Database) -> None:
+    """Fill the planner's caches on ``db`` (column statistics, the plan and
+    its PlanInfo) on the calling thread, before any rank starts: the ranks
+    then only read them, and all of them run one plan object."""
+    planner.column_stats(db)
+    q = getattr(query_fn, "_query", query_fn)
+    if hasattr(q, "info"):
+        q.info(db)
+
+
+def run_distributed(query_fn, db: Database, group_or_n,
+                    capacity_factor: float = 2.0,
+                    packed_exchange: bool = True,
+                    partition_keys: dict | None = None,
+                    join_method: str = "sorted",
+                    wire_format: str | None = None,
+                    device: str | torch.device | None = None,
+                    ) -> tuple[dict, PlanStats, bool]:
+    """Run a query on every rank of a group; returns (result, stats,
+    overflow).
+
+    ``group_or_n`` is a rank group (:mod:`repro_torch.core.comm`) or a rank
+    count N, which means a ``ThreadGroup`` of N ranks on ``device`` (``cuda``
+    unless the caller names another; raises where CUDA is absent).  Every
+    rank runs the same tensor program on its partition of ``db`` — the
+    paper's MPI model.  The result is rank 0's for a ThreadGroup and this
+    process's own for a TorchDistGroup (every rank ends with the same
+    table).  ``overflow`` is True if any rank overflowed.  A payload that
+    failed its integrity check on any rank raises :class:`CorruptPayload`:
+    corrupted buffers are never decoded into served results.
+    """
+    if isinstance(group_or_n, int):
+        group = comm.ThreadGroup(group_or_n, device)
+    else:
+        group = group_or_n
+    dev = group.device
+    shards = device_shards(db, dev, group.size, partition_keys, group.ranks)
+    _warm_planner(query_fn, db)
+
+    def rank_body(g):
+        ctx = DistContext(db, shards[g.rank], dev, g,
+                          capacity_factor=capacity_factor,
+                          packed_exchange=packed_exchange,
+                          join_method=join_method, wire_format=wire_format)
+        out = query_fn(ctx)
+        if isinstance(out, dict):
+            out = Table({k: _as_column(v, dev) for k, v in out.items()},
+                        torch.ones((), dtype=torch.int32, device=dev))
+        out = rel.ensure_compact(out)
+        flags = g.all_reduce(torch.stack([ctx.overflow, ctx.corrupt])
+                             .to(torch.int32), "max")
+        return to_numpy(out), ctx.stats, flags.tolist()
+
+    result, stats, (overflow, corrupt) = group.run(rank_body)[0]
+    if corrupt:
+        raise wi.CorruptPayload(
+            "distributed run: payload integrity check failed")
+    return result, stats, bool(overflow)

@@ -77,9 +77,11 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
 
 def _drop_scatter(idx: torch.Tensor, vals: torch.Tensor, size: int,
                   fill=0) -> torch.Tensor:
-    """``full(size, fill).at[idx].set(vals, mode="drop")`` for indices in
-    ``[0, size]``: index ``size`` lands in an extra slot that is cut off."""
-    out = torch.full((size + 1,), fill, dtype=vals.dtype, device=vals.device)
+    """``full((size, ...), fill).at[idx].set(vals, mode="drop")`` for
+    indices in ``[0, size]``: index ``size`` lands in an extra row that is
+    cut off.  ``vals`` is (n,) or (n, ...) rows."""
+    out = torch.full((size + 1,) + tuple(vals.shape[1:]), fill,
+                     dtype=vals.dtype, device=vals.device)
     out[idx] = vals
     return out[:size]
 
@@ -523,6 +525,7 @@ def _group_aggregate_sorted(t: Table, key_cols: Sequence[str], aggs,
     # invalid rows go to segment cap-1, which is provably not a valid group
     # whenever an invalid row exists (ngroups <= count <= cap-1)
     seg = torch.where(valid, gid, cap - 1)
+    run_len = None              # valid rows per group, for the float sums
 
     out: dict[str, torch.Tensor] = {}
     for k in key_cols:
@@ -541,8 +544,20 @@ def _group_aggregate_sorted(t: Table, key_cols: Sequence[str], aggs,
         elif op == "sum":
             v = torch.where(valid, v, torch.zeros((), dtype=v.dtype,
                                                   device=dev))
-            out[out_name] = torch.zeros(cap, dtype=v.dtype, device=dev) \
-                .index_add_(0, seg, v)
+            if v.is_floating_point():
+                # index_add_ adds floats with atomics in no fixed order on
+                # CUDA.  Sorted, a group's rows are one run, and the valid
+                # runs come first: each is summed in row order (the same
+                # bits on every call), and the invalid tail is never read
+                if run_len is None:     # invalid rows count into a cut slot
+                    run_len = torch.zeros(cap + 1, dtype=_I64, device=dev) \
+                        .index_add_(0, torch.where(valid, gid, cap),
+                                    torch.ones_like(gid))[:cap]
+                out[out_name] = torch.segment_reduce(
+                    v, "sum", lengths=run_len, unsafe=True)
+            else:
+                out[out_name] = torch.zeros(cap, dtype=v.dtype, device=dev) \
+                    .index_add_(0, seg, v)
         elif op in ("min", "max"):
             ident = _dtype_max(v.dtype) if op == "min" else _dtype_min(v.dtype)
             v = torch.where(valid, v, torch.tensor(ident, dtype=v.dtype,

@@ -43,12 +43,28 @@ exactly: one word per 4 logical bytes, bool widened to a word — so
 the static planner and every runtime backend derive the SAME layout and the
 IR-derived wire-byte report equals runtime ``ExchangeStats`` on every backend.
 
-Port status
------------
-This is the host half of ``repro.core.wire``: the layout arithmetic that the
-planner's static wire report and every backend's exchange log share.  The
-traced half (``pack_table`` / ``unpack_table`` and the integrity checksum
-words fused into the counts header row) lands with the distributed slice.
+Integrity checksum (corruption-not-wrong)
+-----------------------------------------
+Packed exchanges fuse a per-block **integrity word** into the existing counts
+header row: a position-rotated XOR fold of the payload words
+(:func:`payload_checksum`), mixed with the row count so a flipped count is as
+detectable as a flipped payload bit.  Formats with >= 2 words per row carry
+the full 32-bit checksum in header word 1 (``header_mode == "word"``);
+single-word formats fold a 16-bit checksum into the high half of the count
+word (``"folded"``, valid while the block's row capacity fits 16 bits —
+beyond that the exchange ships unchecked, ``"none"``).  Any single bit flip
+in payload, count or checksum word changes the verification result.
+
+uint32 arithmetic in torch
+--------------------------
+torch on the CPU has no ``>>`` or ``%`` for ``uint32``, so every wire word is
+handled as its uint32 value held in an int64 tensor (``& 0xFFFFFFFF`` after
+each shift), and turned back into int32 bits only when the buffer is built.
+torch has no XOR reduction either: the checksum folds by pairwise halving.
+A float64 or int64 column splits into two int32 words by ``view``, low word
+first, which is the word order of the reference's
+``jax.lax.bitcast_convert_type``; the buffers are byte-identical to the
+reference's.
 """
 from __future__ import annotations
 
@@ -57,10 +73,16 @@ import os
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
 
 __all__ = [
     "ColWire", "WireFormat", "CorruptPayload", "wire_default",
-    "hockney_skip", "plan_wire_format", "row_bytes",
+    "hockney_skip", "plan_wire_format", "pack_table", "unpack_table",
+    "np_dtype",
+    "row_bytes",
+    "payload_checksum", "fold16", "header_mode",
+    "encode_header_word0", "encode_checksum_word", "decode_header_word0",
+    "verify_block_checksum",
 ]
 
 _LANE_BITS = {"lane8": 8, "lane16": 16}
@@ -144,6 +166,13 @@ class WireFormat:
     def row_logical_bytes(self) -> int:
         """Dtype-true bytes per row (bool = 1 byte), the compression basis."""
         return sum(int(np.dtype(c.dtype).itemsize) for c in self.cols)
+
+
+def np_dtype(dt) -> np.dtype:
+    """numpy dtype of a numpy or torch dtype (wire layouts are host math)."""
+    if isinstance(dt, torch.dtype):
+        return torch.empty(0, dtype=dt).numpy().dtype
+    return np.dtype(dt)
 
 
 def _norm_dtype(dt) -> np.dtype:
@@ -246,3 +275,207 @@ def row_bytes(names, dtypes, bounds=None, narrow=True) -> tuple[int, int]:
     numbers ``ExchangeStats`` reports and the static bench derives."""
     fmt = plan_wire_format(names, dtypes, bounds, narrow)
     return fmt.row_wire_bytes, fmt.row_logical_bytes
+
+
+# ---------------------------------------------------------------------------
+# pack / unpack
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bits -> their uint32 value, as int64."""
+    return x.to(torch.int64) & _M32
+
+
+def _i32(u: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the same bits as int32."""
+    return ((u ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def _torch_dtype(dt: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=dt)).dtype
+
+
+def pack_table(t, fmt: WireFormat) -> tuple[torch.Tensor, torch.Tensor]:
+    """Table -> ((capacity, fmt.words) int32 buffer, overflow flag).
+
+    ``overflow`` is True iff any VALID row of a checked column falls outside
+    its claimed ``[lo, lo + span]`` — lying bounds surface as a re-execution,
+    never as silent truncation.  Invalid rows are zeroed in narrowed lanes
+    (their reconstruction is masked anyway); wide words/splits ship verbatim.
+    """
+    cap, dev = t.capacity, t.device
+    valid = t.valid_mask() if fmt.narrow else None
+    acc: list[torch.Tensor | None] = [None] * fmt.words
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def _or(w: int, u: torch.Tensor):
+        acc[w] = u if acc[w] is None else acc[w] | u
+
+    for c in fmt.cols:
+        v = t[c.name]
+        dt = np.dtype(c.dtype)
+        if c.mode in ("lane8", "lane16", "u32", "const"):
+            if dt == np.bool_:
+                u = v.to(torch.int64)            # 0/1 by construction
+            else:
+                d = v.to(torch.int64) - c.lo
+                overflow = overflow | (valid & ((d < 0) | (d > c.span))).any()
+                u = torch.where(valid, torch.clamp(d, 0, c.span), 0)
+            if c.mode == "const":
+                continue                         # reconstructed from lo
+            _or(c.word, (u << c.shift) & _M32 if c.shift else u)
+        elif c.mode == "word":
+            if dt == np.bool_ or dt.itemsize < 4:
+                x = v.to(torch.int32)            # widen (legacy bool behavior)
+            else:
+                x = v.contiguous().view(torch.int32)
+            _or(c.word, _u32(x))
+        elif c.mode == "split":
+            x = v.contiguous().view(torch.int32).reshape(cap, 2)
+            _or(c.word, _u32(x[:, 0]))
+            _or(c.word + 1, _u32(x[:, 1]))
+        else:
+            raise ValueError(f"unknown wire mode {c.mode!r}")
+
+    zero = torch.zeros(cap, dtype=torch.int64, device=dev)
+    buf = torch.stack([a if a is not None else zero for a in acc], dim=1)
+    return _i32(buf), overflow
+
+
+def unpack_table(buf: torch.Tensor, fmt: WireFormat) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`pack_table`: int32 buffer -> logical columns."""
+    n = buf.shape[0]
+    out: dict[str, torch.Tensor] = {}
+    for c in fmt.cols:
+        dt = np.dtype(c.dtype)
+        tdt = _torch_dtype(dt)
+        if c.mode == "const":
+            out[c.name] = torch.full((n,), c.lo, dtype=tdt, device=buf.device)
+        elif c.mode in ("lane8", "lane16"):
+            u = (_u32(buf[:, c.word]) >> c.shift) & \
+                ((1 << _LANE_BITS[c.mode]) - 1)
+            if dt == np.bool_:
+                out[c.name] = (u & 1).to(torch.bool)
+            else:
+                out[c.name] = (u + c.lo).to(tdt)
+        elif c.mode == "u32":
+            out[c.name] = (_u32(buf[:, c.word]) + c.lo).to(tdt)
+        elif c.mode == "word":
+            w = buf[:, c.word]
+            if dt == np.bool_ or dt.itemsize < 4:
+                out[c.name] = w.to(tdt)
+            else:
+                out[c.name] = w.contiguous().view(tdt)
+        elif c.mode == "split":
+            out[c.name] = buf[:, c.word:c.word + 2].contiguous().view(tdt) \
+                .reshape(n)
+        else:
+            raise ValueError(f"unknown wire mode {c.mode!r}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# integrity checksum (fused into the counts header row)
+# ---------------------------------------------------------------------------
+# Checksums and header words are uint32 values held in int64 tensors; the
+# encode_* functions return the int32 bits that go on the wire.  Every
+# function takes leading batch dimensions (one block per sender).
+
+def header_mode(words: int, max_count: int) -> str:
+    """How a packed block's header row carries its integrity word.
+
+    ``"word"``    words >= 2: the full 32-bit checksum rides in header word 1
+                  (payload rows never use the header row, so the slot is free).
+    ``"folded"``  single-word formats: a 16-bit fold shares the count word's
+                  high half — valid while every possible count fits 16 bits
+                  (``max_count`` is the static per-block row capacity).
+    ``"none"``    single-word format whose counts may exceed 16 bits: the
+                  exchange ships unchecked (statically known; the stats log
+                  still records it).
+    """
+    if words >= 2:
+        return "word"
+    return "folded" if max_count < (1 << 16) else "none"
+
+
+def _xor_fold(u: torch.Tensor) -> torch.Tensor:
+    """XOR of the last dimension, by pairwise halving."""
+    while u.shape[-1] > 1:
+        if u.shape[-1] % 2:
+            u = torch.cat([u, torch.zeros_like(u[..., :1])], dim=-1)
+        half = u.shape[-1] // 2
+        u = u[..., :half] ^ u[..., half:]
+    if u.shape[-1] == 0:
+        return torch.zeros(u.shape[:-1], dtype=u.dtype, device=u.device)
+    return u[..., 0]
+
+
+def payload_checksum(buf: torch.Tensor) -> torch.Tensor:
+    """Position-rotated XOR fold of packed (..., rows, words) int32 blocks.
+
+    Word ``i`` (flat order within its block) is rotated left by ``i % 32``
+    bits before the fold, so a single bit flip anywhere in the block flips
+    exactly one bit of the uint32 result — single-bit corruption is detected
+    with certainty."""
+    u = _u32(buf.reshape(*buf.shape[:-2], -1))
+    r = torch.arange(u.shape[-1], device=u.device) & 31
+    rot = ((u << r) | (u >> ((32 - r) & 31))) & _M32
+    return _xor_fold(rot)
+
+
+def fold16(csum: torch.Tensor) -> torch.Tensor:
+    """uint32 checksum -> 16-bit fold (XOR of halves); a single-bit change of
+    the input changes exactly one bit of the fold."""
+    return (csum ^ (csum >> 16)) & 0xFFFF
+
+
+def _mix_count(count: torch.Tensor) -> torch.Tensor:
+    """Rotate the row count into the checksum so a flipped count word is as
+    detectable as a flipped payload bit."""
+    c = _u32(count)
+    return ((c << 7) | (c >> 25)) & _M32
+
+
+def encode_header_word0(count: torch.Tensor, csum: torch.Tensor, mode: str,
+                        ) -> torch.Tensor:
+    """int32 value of header word 0: the row count, plus (folded mode) the
+    16-bit checksum fold in the high half."""
+    c = _u32(count)
+    if mode == "folded":
+        c = c | (fold16(csum ^ _mix_count(count)) << 16)
+    return _i32(c)
+
+
+def encode_checksum_word(count: torch.Tensor, csum: torch.Tensor
+                         ) -> torch.Tensor:
+    """int32 value of header word 1 (``"word"`` mode): checksum mixed with
+    the count."""
+    return _i32(csum ^ _mix_count(count))
+
+
+def decode_header_word0(word0: torch.Tensor, mode: str) -> torch.Tensor:
+    """Received header word 0 -> row count (int32)."""
+    u = _u32(word0)
+    if mode == "folded":
+        u = u & 0xFFFF
+    return _i32(u)
+
+
+def verify_block_checksum(hdr_row: torch.Tensor, payload: torch.Tensor,
+                          mode: str) -> torch.Tensor:
+    """True where a received block (header row + payload rows) FAILS its
+    integrity check.  ``hdr_row`` is (..., words), ``payload`` the matching
+    (..., rows, words) blocks."""
+    if mode == "none":
+        return torch.zeros(hdr_row.shape[:-1], dtype=torch.bool,
+                           device=hdr_row.device)
+    count = decode_header_word0(hdr_row[..., 0], mode)
+    want = payload_checksum(payload) ^ _mix_count(count)
+    if mode == "folded":
+        return fold16(want) != _u32(hdr_row[..., 0]) >> 16
+    got = _u32(hdr_row[..., 1])
+    # senders zero the unused header tail, so a flip there is detectable too
+    return (want != got) | (hdr_row[..., 2:] != 0).any(dim=-1)

@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -34,13 +35,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # <checkout>/build/repro_torch_kernels: the `build/` line of .gitignore
 # already keeps it out of git
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("segsum", "hash_group", "hash_probe")
+SOURCES = ("segsum", "hash_group", "hash_probe", "radix_hist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # one launch counter per kernel; its wrapper adds one where it launches it
-KERNELS = ("segsum_sum", "segsum_minmax", "hash_insert", "hash_probe64")
+KERNELS = ("segsum_sum", "segsum_minmax", "hash_insert", "hash_probe64",
+           "counting_rank", "radix_hist")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the ranks of a ThreadGroup launch from threads of one process: counting and
+# first-use loading (one build per source) take this lock
+_lock = threading.Lock()
 
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                torch.float64: 3}
@@ -51,12 +56,14 @@ build_log: dict[str, str] = {}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def count_launch(name: str) -> None:
-    launches[name] += 1
+    with _lock:
+        launches[name] += 1
 
 
 def dtype_code(dt: torch.dtype) -> int:
@@ -127,17 +134,18 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built first if needed), with
     ``argtypes`` set from ``signatures`` and every function returning the
     CUDA error code as an int."""
-    lib = _libs.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        _libs[name] = lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[name] = lib
     return lib
 
 

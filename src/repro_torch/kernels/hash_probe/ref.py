@@ -1,33 +1,19 @@
-"""Plain PyTorch versions: the murmur hashes and the 64-bit bucket probe.
+"""Plain PyTorch version of the 64-bit bucket probe, and the bucket hash.
 
-torch on the CPU has no ``>>`` or ``%`` for ``uint32``/``uint64``, so the
-unsigned 32-bit arithmetic of ``murmur32`` runs in int64 on values kept in
-``[0, 2^32)`` by ``& 0xFFFFFFFF`` masks.  An int64 product of two such values
-wraps modulo 2^64, which leaves its low 32 bits exact.  Bit-exact with
-``repro.kernels.radix_hist.kernel.murmur32`` and
-``repro.kernels.hash_probe.kernel.bucket_of``, and with their CUDA twins in
+The bucket hash combines the key's two 32-bit planes through ``murmur32``
+(``kernels/radix_hist/ref.py``, shared with the partition histogram), all in
+int64 with masks, since torch on the CPU has no ``>>`` or ``%`` for
+``uint32``/``uint64``.  Bit-exact with
+``repro.kernels.hash_probe.kernel.bucket_of`` and with its CUDA twin in
 ``csrc/common.cuh``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.radix_hist.ref import murmur32, u32
+
 _M32 = 0xFFFFFFFF
-
-
-def u32(x: torch.Tensor) -> torch.Tensor:
-    """int32 (or int64) bits -> their uint32 value, as int64."""
-    return x.to(torch.int64) & _M32
-
-
-def murmur32(k: torch.Tensor) -> torch.Tensor:
-    """murmur3 fmix32 of the low 32 bits of ``k``; int64 in [0, 2^32)."""
-    k = u32(k)
-    k = k ^ (k >> 16)
-    k = (k * 0x85EBCA6B) & _M32
-    k = k ^ (k >> 13)
-    k = (k * 0xC2B2AE35) & _M32
-    return k ^ (k >> 16)
 
 
 def split64(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -14,11 +14,15 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.core import backend as B
+from repro_torch.core import relational as rel
+from repro_torch.core.table import from_numpy
 from repro_torch.data import tpch
 from repro_torch.kernels.hash_group import ops as hg
 from repro_torch.kernels.hash_group import ref as hg_ref
 from repro_torch.kernels.hash_probe import ops as hp
 from repro_torch.kernels.hash_probe import ref as hp_ref
+from repro_torch.kernels.radix_hist import ops as rh
+from repro_torch.kernels.radix_hist import ref as rh_ref
 from repro_torch.kernels.segsum import ops as ss
 from repro_torch.kernels.segsum import ref as ss_ref
 from repro_torch.queries import QUERIES
@@ -102,4 +106,72 @@ def test_queries_on_card_launch_every_kernel(cuda):
                 np.testing.assert_allclose(
                     np.asarray(got[k], dtype=np.float64),
                     np.asarray(want[k], dtype=np.float64), rtol=1e-7)
-    assert all(v > 0 for v in K.launches.values()), K.launches
+    # the kernels of run_local's path; the counting rank and the histogram
+    # run on the distributed and skew-statistics paths
+    local = ("segsum_sum", "segsum_minmax", "hash_insert", "hash_probe64")
+    assert all(K.launches[k] > 0 for k in local), K.launches
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 300_001])
+@pytest.mark.parametrize("parts", [5, 9, 129, 4096])
+def test_counting_rank_kernel_vs_plain(cuda, n, parts):
+    """Exact: the slots a stable sort by key would give, for tiles that end
+    mid-chunk and widths that fill the rank pass's shared memory."""
+    g = torch.Generator(device=cuda).manual_seed(n + parts)
+    keys = torch.randint(0, parts, (n,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    slot, counts = rh.counting_rank(keys, parts)
+    want_slot, want_counts = rh_ref.counting_rank_ref(keys, parts)
+    assert torch.equal(slot, want_slot)
+    assert torch.equal(counts, want_counts)
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 300_001])
+@pytest.mark.parametrize("parts", [8, 129])
+@pytest.mark.parametrize("hashed", [True, False])
+def test_radix_hist_kernel_vs_plain(cuda, n, parts, hashed):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    keys = torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    got = rh.radix_hist(keys, parts, hashed=hashed)
+    want = rh.radix_hist(keys.cpu(), parts, hashed=hashed)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("qid", [3, 10])
+def test_run_distributed_on_card(cuda, qid):
+    db = tpch.generate(0.01, seed=11)
+    K.reset_launches()
+    got, stats, overflow = B.run_distributed(QUERIES[qid], db, 2)
+    assert not overflow
+    assert stats.counts() == QUERIES[qid].static_counts()
+    want, _ = B.run_reference(QUERIES[qid], db)
+    for k in want:
+        assert len(got[k]) == len(want[k])
+        np.testing.assert_allclose(np.asarray(got[k], dtype=np.float64),
+                                   np.asarray(want[k], dtype=np.float64),
+                                   rtol=1e-7)
+    # every shuffle's dispatch ranks its rows with the kernel
+    assert (K.launches["counting_rank"] > 0) == (stats.shuffles > 0)
+
+
+def test_sort_path_float_sum_is_deterministic(cuda):
+    """The sort path's float sums give the same bits on every call (float
+    atomics would not: narrow and wide wire runs of Q10 then differ)."""
+    rng = np.random.default_rng(0)
+    n = 2_000_000
+    t = from_numpy({"k": rng.integers(0, n // 3, n),
+                    "v": rng.normal(size=n) * 1e6}, device=cuda)
+    outs = [rel.group_aggregate(t, ["k"], [("s", "sum", "v")],
+                                method="sort")["s"] for _ in range(3)]
+    for o in outs[1:]:
+        assert torch.equal(o.view(torch.int64), outs[0].view(torch.int64))
+
+
+@pytest.mark.parametrize("qid", [9, 10, 13, 18])
+def test_distributed_narrow_equals_wide_on_card(cuda, qid):
+    db = tpch.generate(0.05, seed=11)
+    narrow, _, _ = B.run_distributed(QUERIES[qid], db, 4)
+    wide, _, _ = B.run_distributed(QUERIES[qid], db, 4, wire_format="wide")
+    for k in narrow:
+        assert narrow[k].tobytes() == wide[k].tobytes(), k

@@ -33,6 +33,9 @@ out, stats = B.run_local(QUERIES[6], db, device="cpu")
 want, _ = B.run_reference(QUERIES[6], db)
 assert abs(float(out["revenue"][0]) - float(want["revenue"][0])) <= \\
     1e-7 * abs(float(want["revenue"][0]))
+dist, _, overflow = B.run_distributed(QUERIES[10], db, 2, device="cpu")
+want, _ = B.run_reference(QUERIES[10], db)
+assert not overflow and len(dist["revenue"]) == len(want["revenue"])
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
             and sys.modules[m] is not None]
 print("ok")
