@@ -33,8 +33,31 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
   7. all 22 queries at SF 10 through ``run_distributed`` with N = 4 (sorted
      joins): partition and upload time, one warm-up and the median of 3
      timed runs per query, each query's device busy time from one profiled
-     run, peak device memory, each result equal to phase 5's.  The ranks' work is serialised on one card: these are times of
-     the distributed code path, not of a cluster.
+     run, peak device memory, each result equal to phase 5's.  The ranks'
+     work is serialised on one card: these are times of the distributed
+     code path, not of a cluster;
+  8. with the SF 10 tables freed: the 32-bit hash probe against its plain
+     version, bit for bit, over SF 10's l_orderkey (60 M) probing
+     o_orderkey (15 M) as int32 at cap 8, then ``hash_join_probe_auto``,
+     the path that launches it, equal to the sorted-build oracle; flash
+     attention against its plain version at the LM path's shape (B 2,
+     Hq 32, Hkv 8, S 4096, D 128, causal): float32 within 1e-5, bf16 within
+     one output rounding element by element and 2e-2 max abs, with
+     ``F.scaled_dot_product_attention`` timed beside it as the yardstick;
+  9. the LM path at full width and depth: Mistral-Nemo-12B, 40 layers, bf16,
+     weights from a seeded generator on the card.  ``Model.forward`` of
+     B 2 x S 4096 through the flash kernel (40 launches a call; one warm-up
+     and the median of 3, the device busy share of one profiled call);
+     prefill's last-token logits against forward's at B 1 x S 1024;
+     ``serve_lm.generate`` of 32 tokens for 4 prompts of 512 (prefill ms,
+     decode ms a step, tokens/s); peak device memory; then the same weights
+     in float32 at B 1 x S 1024: logits with the kernel against logits
+     without it (relative L2 <= 1e-4, top-1 agreement >= 0.99) and
+     prefill's last-token logits against forward's (relative L2 <= 1e-4,
+     argmax equal), beside the bf16 comparisons and the bf16 plain path
+     against the float32 one: in bf16, rounding alone moves the plain path
+     about as far, so the bf16 kernel path, and bf16 prefill against
+     forward, must lie no further than 1.1x that.
 
 It prints the card line and a ``{"kernels": [...]}`` line before the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -43,6 +66,7 @@ exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -52,10 +76,30 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores, same
 SF_MAIN = 1.0
 SF_TIMED = 10.0
 SEED = 11
 REPS = 3
+# phases 8 and 9: the LM path's attention shape (B, Hq, Hkv, S, D), its
+# config, the forward's (B, S), the sequence of the logit comparisons, and
+# generate's (batch, prompt length, new tokens)
+FLASH_SHAPE = (2, 32, 8, 4096, 128)
+LM_ARCH = "mistral_nemo_12b"
+LM_FORWARD = (2, 4096)
+LM_COMPARE_SEQ = 1024
+LM_GENERATE = (4, 512, 32)
+# flash attention against its plain version: float32 runs the same
+# arithmetic in another order (atol = rtol); bf16 rounds each side's float32
+# result once (unit roundoff 2^-8 each, so 2^-7 of |want| between them, plus
+# the float32 tolerance), and the float32 difference survives near zero
+FLASH_F32_TOL = 1e-5
+FLASH_BF16_RTOL = 8e-3
+FLASH_BF16_ATOL = 2e-5
+# phase 9 in float32: logits with the kernel against without it, and
+# prefill's last-token logits against forward's (readings 3.1e-6 and 0; bf16
+# rounding alone moves the logits 1.77e-2)
+LM_F32_REL_L2 = 1e-4
 
 
 def log(msg: str) -> None:
@@ -86,11 +130,12 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_busy_ms(fn) -> float:
-    """Device time (ms) of everything ``fn`` ran on the card — kernels and
-    copies, summed over the device events of a ``torch.profiler`` trace (one
-    stream, so they never overlap).  Every query runs on the card, so a
-    trace with no device time means the profiler failed: that raises."""
+def device_time_by_kernel(fn) -> dict[str, float]:
+    """Device time (ms) of everything ``fn`` ran on the card, summed by
+    kernel or copy name over the device events of a ``torch.profiler``
+    trace (one stream, so they never overlap).  Every measured run launches
+    work on the card, so a trace with no device time means the profiler
+    failed: that raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -98,12 +143,20 @@ def device_busy_ms(fn) -> float:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
-    if total <= 0:
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    if sum(by_name.values()) <= 0:
         raise RuntimeError("torch.profiler recorded no device time for a run "
                            "that launched work on the card")
-    return total / 1e3
+    return by_name
+
+
+def device_busy_ms(fn) -> float:
+    """Device time (ms) of everything ``fn`` ran on the card."""
+    return sum(device_time_by_kernel(fn).values())
 
 
 def busy_line(label: str, busy: float, median_ms: float) -> str:
@@ -111,19 +164,25 @@ def busy_line(label: str, busy: float, median_ms: float) -> str:
             f"median, idle share {1 - busy / median_ms:.3f}")
 
 
-def bound_ms(nbytes: float) -> float:
-    """Least time to move ``nbytes`` at the card's memory rate.  All four
-    kernels do a few integer or float operations per 8-byte word, far below
-    the card's peak rates, so bytes bound every one."""
-    return nbytes / HBM_BYTES_PER_S * 1e3
+def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """Least time (ms) the card could take, and what sets it: the larger of
+    ``nbytes`` at the card's memory rate ("bytes") and ``flops`` at its
+    dense bf16 rate ("operations").  The six query-engine kernels and the
+    32-bit probe do a few integer or float operations per 8-byte word, far
+    below the peak rates, so bytes bound them (``flops`` 0); flash attention
+    does ~2 S D multiply-adds per element it reads, so operations bound it."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return max(by_bytes, by_ops) * 1e3, \
+        "operations" if by_ops > by_bytes else "bytes"
 
 
 def kernel_entry(name, source, replaces, ms, plain_ms, library_ms, err,
-                 nbytes) -> dict:
+                 nbytes, flops: float = 0.0) -> dict:
+    least, by = bound(nbytes, flops)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes),
-            "bound_by": "bytes", "library_ms": library_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": least, "bound_by": by,
+            "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +339,7 @@ def check_counting_rank(dev) -> dict:
             sort_ms = time_ms(lambda: torch.sort(dest, stable=True))
             nbytes = n * 4 + n * 4 + parts * 4     # keys in, slots out
             log(f"counting_rank n={n} parts={parts}: kernel {ms:.3f} ms, "
-                f"plain {plain:.3f} ms, bound {bound_ms(nbytes):.3f} ms; "
+                f"plain {plain:.3f} ms, bound {bound(nbytes)[0]:.3f} ms; "
                 f"torch.sort(stable) {sort_ms:.3f} ms (the sort it "
                 f"replaces, no single call computes the rank); exact")
             if (n, parts) == (15_000_000, 5):
@@ -318,7 +377,7 @@ def check_radix_hist(dev, db) -> dict:
         nbytes = n * 4 + nb * parts * 4
         log(f"radix_hist   n={n} parts={parts} blk={blk} hashed={hashed}: "
             f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bincount (binned "
-            f"beforehand) {lib:.3f} ms, bound {bound_ms(nbytes):.3f} ms; "
+            f"beforehand) {lib:.3f} ms, bound {bound(nbytes)[0]:.3f} ms; "
             f"exact")
         if hashed:
             entry = kernel_entry(
@@ -387,7 +446,7 @@ def check_hash_probe(dev, n: int, m: int) -> dict:
     nbytes = n * (8 + 4) + occupied * 12
     log(f"hash_probe64 n={n} build={m} B={buckets} C=16 occupied={occupied}: "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (no single library "
-        f"call), bound {bound_ms(nbytes):.3f} ms; exact")
+        f"call), bound {bound(nbytes)[0]:.3f} ms; exact")
     return kernel_entry(
         "hash_probe64", "src/repro_torch/kernels/csrc/hash_probe.cu",
         "src/repro/kernels/hash_probe/kernel.py:87", ms, plain_ms, None, 0.0,
@@ -599,6 +658,312 @@ def run_distributed_timed(dev, db, results) -> None:
         f"serialised on one card, not a cluster's times)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the last two kernels at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def check_hash_probe32(dev, probe_np, build_np) -> tuple[dict, dict]:
+    """SF 10's l_orderkey probing o_orderkey as int32, cap 8: the kernel bit
+    for bit against its plain version on the cap-8 table; then
+    ``hash_join_probe_auto``, the path that launches it, with the counters
+    reset just before and read just after, equal to the sorted-build
+    oracle.  Returns the entry and the path's launch counts."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.hash_probe import ops, ref
+    probe = torch.from_numpy(probe_np.astype("int32")).to(dev)
+    build = torch.from_numpy(build_np.astype("int32")).to(dev)
+    n, m, cap = probe.shape[0], build.shape[0], 8
+    rows = torch.arange(m, dtype=torch.int32, device=dev)
+    buckets = max(128, ops.next_pow2(2 * m) // cap)
+    bkeys, bvals, overflowed = ops.build_bucket_table(build, rows, buckets,
+                                                      cap)
+    got = ops.hash_probe32(probe, bkeys, bvals)
+    chunk = 10_000_000
+
+    def plain():
+        return torch.cat([ref.hash_probe32_ref(probe[i:i + chunk], bkeys,
+                                               bvals)
+                          for i in range(0, n, chunk)])
+
+    if not torch.equal(got, plain()):
+        raise AssertionError("hash_probe32 differs from plain")
+    ms = time_ms(lambda: ops.hash_probe32(probe, bkeys, bvals))
+    plain_ms = time_ms(plain, reps=2)
+    occupied = int((bvals >= 0).sum())
+    # each probe key read and row written once, each occupied lane (key,
+    # row) read once; empty lanes carry nothing
+    nbytes = n * (4 + 4) + occupied * 8
+    log(f"hash_probe32 n={n} build={m} B={buckets} C={cap} "
+        f"occupied={occupied} overflowed={bool(overflowed)}: kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms (no single library call), "
+        f"bound {bound(nbytes)[0]:.3f} ms; exact")
+    entry = kernel_entry(
+        "hash_probe32", "src/repro_torch/kernels/csrc/hash_probe.cu",
+        "src/repro/kernels/hash_probe/kernel.py:65", ms, plain_ms, None, 0.0,
+        nbytes)
+
+    torch.cuda.synchronize(dev)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    found, cap_held = ops.hash_join_probe_auto(probe, build, rows, device=dev)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    counts = dict(K.launches)
+    want = ref.hash_probe_ref(probe, build, rows)
+    if not torch.equal(found, want) or bool((found < 0).any()) or \
+            not torch.equal(build[found.long()], probe):
+        raise AssertionError("hash_join_probe_auto differs from the "
+                             "sorted-build oracle")
+    log(f"hash_join_probe_auto SF {SF_TIMED} l_orderkey -> o_orderkey: "
+        f"held at cap {cap_held} ({secs * 1e3:.1f} ms with the builds), "
+        f"every lineitem found its order, equal to the sorted-build oracle; "
+        f"launches {json.dumps(counts)}")
+    if counts["hash_probe32"] <= 0:
+        raise AssertionError("hash_join_probe_auto did not launch "
+                             "hash_probe32")
+    return entry, counts
+
+
+def check_flash(dev) -> dict:
+    """The LM path's attention shape (``FLASH_SHAPE``), causal, against the
+    plain version and timed beside ``F.scaled_dot_product_attention``.  In
+    float32 within ``FLASH_F32_TOL`` (the same arithmetic in another order);
+    in bf16 within one output rounding of the plain version element by
+    element (``FLASH_BF16_RTOL``, ``FLASH_BF16_ATOL``) and within 2e-2 max
+    abs.  Late rows average thousands of keys, so their outputs are ~0.04:
+    a fixed absolute limit of 2e-2 alone would pass a wrong kernel there."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version's GEMMs
+    b, hq, hkv, s, d = FLASH_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev)
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+
+    def plain(q, k, v):
+        return ref.attention_ref(q.reshape(b * hq, s, d),
+                                 k.reshape(b * hkv, s, d),
+                                 v.reshape(b * hkv, s, d)).reshape(q.shape)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    def excess(got, want, rtol, atol) -> float:
+        """Largest |got - want| - (atol + rtol |want|): at most 0 passes."""
+        want = want.float()
+        return ((got.float() - want).abs() - rtol * want.abs() - atol) \
+            .max().item()
+
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    got32, want32 = ops.flash_attention(q32, k32, v32, causal=True), \
+        plain(q32, k32, v32)
+    err32 = (got32 - want32).abs().max().item()
+    over32 = excess(got32, want32, FLASH_F32_TOL, FLASH_F32_TOL)
+    del q32, k32, v32, got32, want32
+    got, want = ops.flash_attention(q, k, v, causal=True), plain(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    over16 = excess(got, want, FLASH_BF16_RTOL, FLASH_BF16_ATOL)
+    rel = rel_l2(got, want)
+    lib_err = (library().float() - want.float()).abs().max().item()
+    del got, want
+    log(f"flash_attention {FLASH_SHAPE} causal: float32 max abs err "
+        f"{err32:.3e} (largest excess over atol = rtol = {FLASH_F32_TOL}: "
+        f"{over32:.3e}); bf16 max abs err {err:.3e}, relative L2 {rel:.3e}, "
+        f"largest excess over one output rounding (rtol {FLASH_BF16_RTOL}, "
+        f"atol {FLASH_BF16_ATOL}): {over16:.3e}")
+    if not over32 <= 0:
+        raise AssertionError(f"flash_attention float32: beyond {FLASH_F32_TOL}"
+                             f" of the plain version by {over32}")
+    if not (over16 <= 0 and err <= 2e-2):
+        raise AssertionError(f"flash_attention bf16: max abs err {err}, "
+                             f"beyond one output rounding by {over16}")
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: plain(q, k, v), reps=2)
+    lib_ms = time_ms(library)
+    flops = 4.0 * d * (s * (s + 1) / 2) * b * hq     # the causal half
+    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    log(f"flash_attention B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal bf16: "
+        f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms "
+        f"(max abs err {lib_err:.3e} against plain), bound "
+        f"{bound(nbytes, flops)[0]:.3f} ms ({bound(nbytes, flops)[1]})")
+    return kernel_entry(
+        "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:67", ms, plain_ms,
+        lib_ms, err, nbytes, flops)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the LM path at full width
+# ---------------------------------------------------------------------------
+
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def run_lm_path(dev) -> dict[str, int]:
+    """Phase 9.  Returns the launch counts of one forward."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import Model
+    cfg = get_config(LM_ARCH)
+    (batch, seq), cmp_seq = LM_FORWARD, LM_COMPARE_SEQ
+    gen_batch, prompt, new_tokens = LM_GENERATE
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, dtype=torch.bfloat16, generator=g,
+                  use_flash_kernel=True)
+    torch.cuda.synchronize(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, {n_params / 1e9:.3f} B parameters "
+        f"in bf16 ({torch.cuda.memory_allocated(dev) / 1e9:.2f} GB), drawn "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g,
+                           device=dev)
+    with torch.inference_mode():
+        K.reset_launches()
+        logits = model(tokens)
+        torch.cuda.synchronize(dev)
+        counts = dict(K.launches)
+        if logits.shape != (batch, seq, model.padded_vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"forward: logits {tuple(logits.shape)} "
+                                 f"not finite or of the wrong shape")
+        del logits
+        if counts["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"forward launched flash_attention "
+                                 f"{counts['flash_attention']} times, want "
+                                 f"{cfg.n_layers}")
+        runs = []
+        for _ in range(REPS):
+            s = time.perf_counter()
+            model(tokens)
+            torch.cuda.synchronize(dev)
+            runs.append((time.perf_counter() - s) * 1e3)
+        med = statistics.median(runs)
+        by_name = device_time_by_kernel(lambda: model(tokens))
+        busy = sum(by_name.values())
+        log(f"forward B={batch} S={seq} through the flash kernel: median of "
+            f"{REPS} {med:.1f} ms ({batch * seq / med * 1e3:.0f} tokens/s; "
+            f"runs {', '.join(f'{r:.1f}' for r in runs)}); launches "
+            f"{json.dumps(counts)}")
+        log(busy_line(f"forward B={batch} S={seq}", busy, med))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log("forward device time by kernel: " + "; ".join(
+            f"{name[:72]} {ms:.1f} ms" for name, ms in top))
+
+        short = tokens[:1, :cmp_seq]
+        fast16, plain16 = logits_with_and_without_kernel(model, short)
+        last, _ = model.prefill(short, model.init_cache(1, cmp_seq + 8))
+        rel_p = rel_l2(last[:, 0], plain16[:, -1])
+        same_p = bool((last[:, 0].argmax(-1) == plain16[:, -1].argmax(-1))
+                      .all())
+        del last
+        log(f"B=1 S={cmp_seq} bf16: prefill's last-token logits vs "
+            f"forward's: relative L2 {rel_p:.3e}, argmax equal {same_p}")
+    prompts = torch.randint(0, cfg.vocab, (gen_batch, prompt), generator=g,
+                            device=dev)
+    out = serve_lm.generate(model, prompts, new_tokens, 0.8, g)
+    ids = out.tokens
+    if ids.shape != (gen_batch, new_tokens) or \
+            not bool(((ids >= 0) & (ids < cfg.vocab)).all()):
+        raise AssertionError(f"generate: ids {tuple(ids.shape)} out of range")
+    steps = new_tokens - 1
+    log(f"generate B={gen_batch} prompt={prompt} new={new_tokens}: prefill "
+        f"{out.prefill_s * 1e3:.1f} ms, decode {out.decode_s / steps * 1e3:.2f}"
+        f" ms a step, {gen_batch * steps / out.decode_s:.1f} decoded tokens/s,"
+        f" {gen_batch * new_tokens / (out.prefill_s + out.decode_s):.1f} "
+        f"tokens/s overall; first ids {ids[0, :8].tolist()}")
+    with torch.inference_mode():
+        # one decode step of that batch, host clock against device time
+        cache = model.init_cache(gen_batch, prompt + 8)
+        logits, cache = model.prefill(prompts, cache)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+
+        def step():
+            return model.decode(tok, cache, prompt)
+
+        runs = []
+        for _ in range(REPS):
+            torch.cuda.synchronize(dev)
+            s = time.perf_counter()
+            step()
+            torch.cuda.synchronize(dev)
+            runs.append((time.perf_counter() - s) * 1e3)
+        log(busy_line(f"decode step B={gen_batch} at position {prompt}",
+                      device_busy_ms(step), statistics.median(runs)))
+        del cache, logits
+    log(f"LM path (bf16): peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+    # The same weights in float32 (49 GB): with and without the kernel,
+    # where rounding no longer hides the kernel, and the float32 plain path
+    # as the yardstick of bf16 rounding alone.
+    del out, prompts, tokens
+    torch.backends.cuda.matmul.allow_tf32 = False       # full float32 GEMMs
+    model.float()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        fast32, plain32 = logits_with_and_without_kernel(model, short)
+        last, _ = model.prefill(short, model.init_cache(1, cmp_seq + 8))
+        rel_p32 = rel_l2(last[:, 0], plain32[:, -1])
+        same_p32 = bool((last[:, 0].argmax(-1) == plain32[:, -1].argmax(-1))
+                        .all())
+        del last
+    log(f"B=1 S={cmp_seq} float32: prefill's last-token logits vs forward's:"
+        f" relative L2 {rel_p32:.3e}, argmax equal {same_p32}")
+    if not (rel_p32 <= LM_F32_REL_L2 and same_p32):
+        raise AssertionError(f"prefill's last-token logits differ from "
+                             f"forward's (float32): rel L2 {rel_p32}")
+    rows = [("bf16, kernel vs plain attention", fast16, plain16),
+            ("float32, kernel vs plain attention", fast32, plain32),
+            ("plain attention, bf16 vs float32", plain16, plain32),
+            ("bf16 kernel vs float32 plain attention", fast16, plain32)]
+    got = {}
+    for label, a, b in rows:
+        got[label] = (rel_l2(a, b), top1_agreement(a, b))
+        log(f"B=1 S={cmp_seq} logits, {label}: relative L2 "
+            f"{got[label][0]:.3e}, top-1 agreement {got[label][1]:.4f}")
+    rel, top1 = got["float32, kernel vs plain attention"]
+    if not (rel <= LM_F32_REL_L2 and top1 >= 0.99):
+        raise AssertionError(f"forward with the kernel differs from forward "
+                             f"without (float32): rel L2 {rel}, top-1 {top1}")
+    # bf16 rounding alone moves the plain path's logits this far from
+    # float32; a fault in the bf16 kernel would move the kernel path further
+    bf16_rounding = got["plain attention, bf16 vs float32"][0]
+    kernel16 = got["bf16 kernel vs float32 plain attention"][0]
+    if not kernel16 <= 1.1 * bf16_rounding:
+        raise AssertionError(f"the bf16 kernel path is {kernel16} from the "
+                             f"float32 logits, the bf16 plain path "
+                             f"{bf16_rounding}")
+    if not (rel_p <= 1.1 * bf16_rounding and same_p):
+        raise AssertionError(f"prefill's last-token logits differ from "
+                             f"forward's (bf16): rel L2 {rel_p}, bf16 "
+                             f"rounding {bf16_rounding}")
+    return counts
+
+
+def logits_with_and_without_kernel(model, tokens):
+    """Float32 copies of the model's logits through the flash kernel and
+    through the plain attention."""
+    out = []
+    for flash in (True, False):
+        model.use_flash_kernel = flash
+        out.append(model(tokens).float())
+    model.use_flash_kernel = True
+    return out
+
+
+def top1_agreement(a, b) -> float:
+    return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -645,12 +1010,33 @@ def main() -> int:
     dist_counts = run_distributed_path(dev, db1, refs)
     del db1
     run_distributed_timed(dev, db10, results)
+
+    # phases 8 and 9 run with the SF 10 tables freed
+    probe_np = db10.tables["lineitem"]["l_orderkey"]
+    build_np = db10.tables["orders"]["o_orderkey"]
+    from repro_torch.core import planner
+    planner.invalidate_stats(db10)
+    del db10, results
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    entry, probe_counts = check_hash_probe32(dev, probe_np, build_np)
+    entries.append(entry)
+    del probe_np, build_np
+    entries.append(check_flash(dev))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    lm_counts = run_lm_path(dev)
     # each kernel's launches on the path that runs it: the local main path,
-    # the distributed path (the counting rank), the skew statistics
+    # the distributed path (the counting rank), the skew statistics, the
+    # 32-bit join probe, one forward of the LM path
     for e in entries:
         e["launches"] = {"counting_rank": dist_counts,
-                         "radix_hist": skew_counts}.get(e["name"],
-                                                        counts)[e["name"]]
+                         "radix_hist": skew_counts,
+                         "hash_probe32": probe_counts,
+                         "flash_attention": lm_counts}.get(
+            e["name"], counts)[e["name"]]
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.0f} s")
     print(card)

@@ -35,20 +35,21 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # <checkout>/build/repro_torch_kernels: the `build/` line of .gitignore
 # already keeps it out of git
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("segsum", "hash_group", "hash_probe", "radix_hist")
+SOURCES = ("segsum", "hash_group", "hash_probe", "radix_hist",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # one launch counter per kernel; its wrapper adds one where it launches it
 KERNELS = ("segsum_sum", "segsum_minmax", "hash_insert", "hash_probe64",
-           "counting_rank", "radix_hist")
+           "counting_rank", "radix_hist", "hash_probe32", "flash_attention")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 # the ranks of a ThreadGroup launch from threads of one process: counting and
 # first-use loading (one build per source) take this lock
 _lock = threading.Lock()
 
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
-               torch.float64: 3}
+               torch.float64: 3, torch.bfloat16: 4}
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas -v report (registers, shared memory, spills) of each source built by
 # this process; empty for a library found already built

@@ -13,7 +13,9 @@
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
 
 // dtype codes shared with the Python wrappers (kernels/__init__.py::DTYPE_CODE)
-enum DType : int { kInt32 = 0, kInt64 = 1, kFloat32 = 2, kFloat64 = 3 };
+enum DType : int {
+  kInt32 = 0, kInt64 = 1, kFloat32 = 2, kFloat64 = 3, kBFloat16 = 4
+};
 
 // murmur3 fmix32: the 32-bit finalizer of repro/kernels/radix_hist/kernel.py
 // (murmur32).  Bit-exact with the plain version in kernels/hash_probe/ref.py.

@@ -1,13 +1,20 @@
-"""Public wrapper: bucket-table build (plain PyTorch) + the 64-bit probe.
+"""Public wrappers: bucket-table builds (plain PyTorch), the 64-bit probe of
+the hash joins, and the 32-bit probe with its end-to-end join entry point.
 
-The build stays plain PyTorch, as the reference builds it outside Pallas: one
-stable lexicographic sort by (bucket, key), written as two stable argsorts
-(least significant key first), then a dedup and a rank within each bucket.
+The 64-bit build stays plain PyTorch, as the reference builds it outside
+Pallas: one stable lexicographic sort by (bucket, key), written as two
+stable argsorts (least significant key first), then a dedup and a rank
+within each bucket.
 A bucket holding more than ``cap`` distinct keys raises the overflow flag, so
 the caller re-executes with larger buckets (the runner's capacity factor).
 
-``hash_probe64`` launches ``csrc/hash_probe.cu`` on a CUDA tensor and runs
-the plain version (``ref.hash_probe64_ref``) on a CPU tensor.
+The 32-bit build is the reference's: one stable argsort by bucket and a
+rank within each bucket, with no dedup (build keys are unique by contract).
+
+``hash_probe64`` and ``hash_probe32`` launch ``csrc/hash_probe.cu`` on a CUDA
+tensor and run their plain versions (``ref.hash_probe64_ref``,
+``ref.hash_probe32_ref``) on a CPU tensor.  ``hash_join_probe`` is an entry
+point: it runs on ``cuda`` unless the caller names another device.
 """
 from __future__ import annotations
 
@@ -16,15 +23,20 @@ import ctypes
 import torch
 
 from repro_torch import kernels as K
-from .ref import bucket_of, hash_probe64_ref, murmur32, split64
+from repro_torch.core.table import resolve_device
+from .ref import (bucket_of, bucket_of32, hash_probe32_ref, hash_probe64_ref,
+                  murmur32, split64)
 
 __all__ = ["SENTINEL", "next_pow2", "build_bucket_table64", "hash_probe64",
-           "bucket_of", "murmur32", "split64"]
+           "build_bucket_table", "hash_probe32", "hash_join_probe",
+           "hash_join_probe_auto", "bucket_of", "murmur32", "split64"]
 
 SENTINEL = -2147483648          # empty lane of both key planes
 _c = ctypes.c_void_p
 _SIGNATURES = {"hash_probe64": [_c, ctypes.c_longlong, _c, _c, _c,
-                                ctypes.c_int, ctypes.c_int, _c, _c]}
+                                ctypes.c_int, ctypes.c_int, _c, _c],
+               "hash_probe32": [_c, ctypes.c_longlong, _c, _c, ctypes.c_int,
+                                ctypes.c_int, _c, _c]}
 
 
 def next_pow2(x: int) -> int:
@@ -103,3 +115,98 @@ def hash_probe64(probe_keys: torch.Tensor, bk_lo: torch.Tensor,
     K.check(lib, rc, "hash_probe64")
     K.count_launch("hash_probe64")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the 32-bit probe
+# ---------------------------------------------------------------------------
+
+def build_bucket_table(keys: torch.Tensor, vals: torch.Tensor, buckets: int,
+                       cap: int = 8):
+    """(m,) unique int32 keys -> ((B, C) keys, (B, C) vals, overflowed).
+
+    A bucket's keys fill its lanes front to back in row order; empty lanes
+    hold ``SENTINEL`` and -1.  Keys past ``cap`` in a bucket are dropped and
+    raise the overflow flag.  Bit-exact with the reference's
+    ``build_bucket_table``."""
+    dev = keys.device
+    m = keys.shape[0]
+    k32 = keys.to(torch.int32)
+    b = bucket_of32(k32, buckets)
+    order = torch.argsort(b, stable=True)
+    sb = b[order]
+    counts = torch.bincount(b, minlength=buckets)
+    start = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(m, device=dev) - start[sb]
+    flat = torch.where(slot < cap, sb * cap + slot.clamp(max=cap - 1),
+                       buckets * cap)
+
+    def plane(fill: int, src: torch.Tensor) -> torch.Tensor:
+        # one extra slot absorbs every dropped row, then is cut off
+        out = torch.full((buckets * cap + 1,), fill, dtype=torch.int32,
+                         device=dev)
+        out[flat] = src[order].to(torch.int32)
+        return out[:-1].reshape(buckets, cap)
+
+    return plane(SENTINEL, k32), plane(-1, vals), (counts > cap).any()
+
+
+def hash_probe32(probe_keys: torch.Tensor, bkeys: torch.Tensor,
+                 bvals: torch.Tensor) -> torch.Tensor:
+    """(n,) int32 probe keys vs a (B, C) int32 bucket table -> the largest
+    matching build row or -1 (int32), the max over the bucket's C lanes."""
+    if bkeys.ndim != 2 or bkeys.shape != bvals.shape:
+        raise ValueError("hash_probe32: bucket planes must share one (B, C) "
+                         "shape")
+    if probe_keys.device.type == "cpu":
+        return hash_probe32_ref(probe_keys, bkeys, bvals)
+    if probe_keys.device.type != "cuda":
+        raise ValueError(f"hash_probe32: unsupported device {probe_keys.device}")
+    keys = probe_keys.to(torch.int32).contiguous()
+    for t in (bkeys, bvals):
+        if t.dtype != torch.int32 or t.device != keys.device:
+            raise TypeError("hash_probe32: bucket planes must be int32 on the "
+                            "probe keys' device")
+    bkeys, bvals = bkeys.contiguous(), bvals.contiguous()
+    buckets, cap = bkeys.shape
+    out = torch.empty(keys.shape[0], dtype=torch.int32, device=keys.device)
+    lib = K.load("hash_probe", _SIGNATURES)
+    with torch.cuda.device(keys.device):
+        rc = lib.hash_probe32(K.ptr(keys), keys.shape[0], K.ptr(bkeys),
+                              K.ptr(bvals), buckets, cap, K.ptr(out),
+                              K.stream_of(keys))
+    K.check(lib, rc, "hash_probe32")
+    K.count_launch("hash_probe32")
+    return out
+
+
+def hash_join_probe(probe_keys, build_keys, build_vals, cap: int = 8,
+                    device=None):
+    """End-to-end 32-bit probe: (matched build value or -1 (int32), build
+    overflowed (0-d bool)).
+
+    Builds a (B, ``cap``) table with B = max(128, next_pow2(2 m) / cap), as
+    the reference sizes it, and probes it with :func:`hash_probe32`.  Runs on
+    ``device`` (``cuda`` unless the caller names another; raises without
+    CUDA); inputs are moved there."""
+    dev = resolve_device(device)
+    probe, bk, bv = (torch.as_tensor(t, device=dev)
+                     for t in (probe_keys, build_keys, build_vals))
+    buckets = max(128, next_pow2(2 * max(1, bk.shape[0])) // cap)
+    bkeys, bvals, overflowed = build_bucket_table(bk, bv, buckets, cap)
+    return hash_probe32(probe, bkeys, bvals), overflowed
+
+
+def hash_join_probe_auto(probe_keys, build_keys, build_vals, cap: int = 8,
+                         max_tries: int = 4, device=None):
+    """Capacity escalation on the host: double ``cap`` while the build
+    overflows.  Returns (rows, the cap that held); raises if ``max_tries``
+    builds all overflow.  The engine does not use this loop: its joins
+    surface the overflow flag and the runner re-executes the query."""
+    for _ in range(max_tries):
+        out, overflowed = hash_join_probe(probe_keys, build_keys, build_vals,
+                                          cap=cap, device=device)
+        if not bool(overflowed):
+            return out, cap
+        cap *= 2
+    raise RuntimeError(f"bucket overflow persists at cap={cap}")

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the 64-bit bucket probe, and the bucket hash.
+"""Plain PyTorch versions of the 64-bit and 32-bit bucket probes, the bucket
+hash, and the reference's sorted-build oracle of the 32-bit join probe.
 
 The bucket hash combines the key's two 32-bit planes through ``murmur32``
 (``kernels/radix_hist/ref.py``, shared with the partition histogram), all in
@@ -40,3 +41,33 @@ def hash_probe64_ref(probe_keys: torch.Tensor, bk_lo: torch.Tensor,
     hit = (bk_lo[b] == lo[:, None]) & (bk_hi[b] == hi[:, None])   # (n, C)
     neg = torch.full((), -1, dtype=bvals.dtype, device=bvals.device)
     return torch.where(hit, bvals[b], neg).amax(dim=1)
+
+
+def bucket_of32(keys: torch.Tensor, buckets: int) -> torch.Tensor:
+    """Bucket id (int64) of an int32 key: ``murmur32(key) % buckets``, as the
+    reference's 32-bit build and probe hash it."""
+    return murmur32(keys) % buckets
+
+
+def hash_probe32_ref(probe_keys: torch.Tensor, bkeys: torch.Tensor,
+                     bvals: torch.Tensor) -> torch.Tensor:
+    """(n,) int32 probe keys vs a (B, C) int32 bucket table -> the largest
+    matching build row or -1, the max over all C lanes (int32)."""
+    keys = probe_keys.to(torch.int32)
+    b = bucket_of32(keys, bkeys.shape[0])
+    hit = bkeys[b] == keys[:, None]                               # (n, C)
+    neg = torch.full((), -1, dtype=bvals.dtype, device=bvals.device)
+    return torch.where(hit, bvals[b], neg).amax(dim=1)
+
+
+def hash_probe_ref(probe_keys: torch.Tensor, build_keys: torch.Tensor,
+                   build_vals: torch.Tensor) -> torch.Tensor:
+    """The reference's oracle of the join probe: probe (n,) against unique
+    build keys (m,) through a sorted build and a binary search -> the
+    matched build value or -1 (int32)."""
+    order = torch.argsort(build_keys)
+    sk, sv = build_keys[order], build_vals[order]
+    pos = torch.searchsorted(sk, probe_keys.to(sk.dtype)) \
+        .clamp(0, sk.shape[0] - 1)
+    hit = sk[pos] == probe_keys
+    return torch.where(hit, sv[pos], -1).to(torch.int32)

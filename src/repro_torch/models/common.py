@@ -1,0 +1,148 @@
+"""Shared model substrate: the architecture config, norms, RoPE, activations
+and weight init, as in ``repro.models.common``.
+
+Every function takes and returns tensors on the caller's device and keeps the
+reference's numerics: RMS norm and RoPE run in float32 and cast back to the
+input's dtype.  Weights are drawn from an explicit ``torch.Generator``; the
+reference draws from ``jax.random`` keys, so the two give different numbers
+from one seed (the tests carry the reference's weights across instead, with
+``models/convert.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """One assigned architecture (exact public config; see repro_torch.configs)."""
+    name: str
+    family: str                   # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None
+    act: str = "swiglu"           # swiglu | geglu
+    qkv_bias: bool = False
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    embed_scale: bool = False     # gemma-style sqrt(d) embedding multiplier
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    first_dense_layers: int = 0   # deepseek: first layer is dense
+    # MLA (deepseek)
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    shared_attn_every: int = 0    # zamba2: shared attn block cadence
+    # modality frontend stubs
+    frontend: str | None = None   # None | "vision_patches" | "audio_frames"
+    n_prefix: int = 0             # vision: number of patch embeddings
+    # attention variant
+    prefix_lm: bool = False       # paligemma: bidirectional prefix
+    sub_quadratic: bool = False   # eligible for long_500k
+    param_count: float = 0.0      # nominal N for MODEL_FLOPS (6ND)
+    active_param_count: float = 0.0  # MoE: active params per token
+    # numerics: float32 norm chains are the baseline
+    norms_f32: bool = True
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU smoke tests."""
+        return dataclasses.replace(
+            self,
+            n_layers=min(self.n_layers, 2 + (2 if self.shared_attn_every else 0)),
+            d_model=128,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 4) if self.n_kv_heads > 1 else 1,
+            head_dim=32,
+            d_ff=256,
+            d_ff_expert=min(self.d_ff_expert, 64) if self.d_ff_expert else 0,
+            vocab=min(self.vocab, 512),
+            n_experts=min(self.n_experts, 8) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            q_lora_rank=min(self.q_lora_rank, 64) if self.q_lora_rank else 0,
+            kv_lora_rank=min(self.kv_lora_rank, 32) if self.kv_lora_rank else 0,
+            qk_nope_dim=32, qk_rope_dim=16, v_head_dim=32,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            shared_attn_every=min(self.shared_attn_every, 2)
+            if self.shared_attn_every else 0,
+            n_prefix=min(self.n_prefix, 8) if self.n_prefix else 0,
+        )
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             in_f32: bool = True) -> torch.Tensor:
+    """``x / rms(x) * (1 + scale)``, in float32 unless ``in_f32`` is False."""
+    dt = x.dtype
+    if in_f32:
+        x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    out = (x * torch.rsqrt(var + eps)) * (1.0 + scale.to(x.dtype))
+    return out.to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device | str | None = None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., S, H, D); positions (..., S) integer.  Rotates the two halves
+    of each head in float32 and casts back to x's dtype."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                 # (D/2,)
+    ang = positions.float()[..., None] * freqs             # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]                     # (..., S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def glu_act(x_gate: torch.Tensor, x_up: torch.Tensor, kind: str
+            ) -> torch.Tensor:
+    if kind == "swiglu":
+        return F.silu(x_gate) * x_up
+    if kind == "geglu":
+        return F.gelu(x_gate, approximate="tanh") * x_up
+    raise ValueError(kind)
+
+
+def dense_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
+               scale: float | None = None) -> torch.Tensor:
+    """Normal weights of std ``scale`` (default fan_in^-1/2, fan_in the
+    first dimension), drawn in float32 on the generator's device."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    std = scale if scale is not None else fan_in ** -0.5
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return w.mul_(std).to(dtype)

@@ -36,6 +36,17 @@ assert abs(float(out["revenue"][0]) - float(want["revenue"][0])) <= \\
 dist, _, overflow = B.run_distributed(QUERIES[10], db, 2, device="cpu")
 want, _ = B.run_reference(QUERIES[10], db)
 assert not overflow and len(dist["revenue"]) == len(want["revenue"])
+import dataclasses
+import torch
+from repro_torch import configs
+from repro_torch.launch import serve_lm
+from repro_torch.models import Model
+cfg = dataclasses.replace(configs.get_config("mistral_nemo_12b").reduced(),
+                          n_kv_heads=2)
+model = Model(cfg, device="cpu", dtype=torch.float32, use_flash_kernel=True)
+gen = serve_lm.generate(model, torch.zeros((1, 4), dtype=torch.int64), 3,
+                        1.0, torch.Generator().manual_seed(0))
+assert gen.tokens.shape == (1, 3)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
             and sys.modules[m] is not None]
 print("ok")
