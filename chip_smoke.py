@@ -11,10 +11,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
   3. every kernel on the card against its plain PyTorch version, at the main
      path's shapes for TPC-H SF 10: kernel, plain, library-call and bound
      times, and the float sum run twice and compared byte for byte; the
-     counting rank at one rank's lineitem share (15 M rows, N = 4) and at
-     60 M, the partition histogram over SF 10's l_orderkey, both exact; then
-     ``skew_stats`` of SF 10's l_partkey over 8 partitions, the path that
-     launches the histogram;
+     64-bit hash probe's build, probe and both timed, beside the sorted
+     index over the same keys; the counting rank at one rank's lineitem
+     share (15 M rows, N = 4) and at 60 M, the partition histogram over SF
+     10's l_orderkey, both exact; then ``skew_stats`` of SF 10's l_partkey
+     over 8 partitions, the path that launches the histogram;
   4. the main path: all 22 TPC-H queries at SF 1 through
      ``repro_torch.core.backend.run_local`` under both join methods, checked
      against the port's NumPy reference (row counts equal, rtol 1e-7), with
@@ -41,12 +42,16 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      o_orderkey (15 M) as int32 at cap 8, then ``hash_join_probe_auto``,
      the path that launches it, equal to the sorted-build oracle; flash
      attention against its plain version at the LM path's shape (B 2,
-     Hq 32, Hkv 8, S 4096, D 128, causal): float32 within 1e-5, bf16 within
-     one output rounding element by element and 2e-2 max abs, with
+     Hq 32, Hkv 8, S 4096, D 128, causal): float32 (the CUDA-core design)
+     within 1e-5, bf16 (the tensor-core design) within one output rounding
+     element by element and 2e-2 max abs, with
      ``F.scaled_dot_product_attention`` timed beside it as the yardstick;
+     then the tensor-core design at head sizes 64 and 256 (S 1024, both
+     masks) under the same limits;
   9. the LM path at full width and depth: Mistral-Nemo-12B, 40 layers, bf16,
      weights from a seeded generator on the card.  ``Model.forward`` of
-     B 2 x S 4096 through the flash kernel (40 launches a call; one warm-up
+     B 2 x S 4096 through the flash kernel (40 launches a call, all of the
+     tensor-core design; one warm-up
      and the median of 3, the device busy share of one profiled call);
      prefill's last-token logits against forward's at B 1 x S 1024;
      ``serve_lm.generate`` of 32 tokens for 4 prompts of 512 (prefill ms,
@@ -183,6 +188,22 @@ def kernel_entry(name, source, replaces, ms, plain_ms, library_ms, err,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": least, "bound_by": by,
             "library_ms": library_ms}
+
+
+def check_tensor_core_sass(K) -> None:
+    """The built flash attention library holds warpgroup tensor-core
+    products (``HGMMA`` in its SASS), or the tensor-core design is not
+    what was compiled."""
+    cuobjdump = Path(K.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(K.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    hgmma = [line.strip() for line in sass.splitlines() if "HGMMA" in line]
+    if not hgmma:
+        raise AssertionError("no HGMMA in the flash attention library")
+    shapes = sorted({line.split()[1] for line in hgmma})
+    log(f"cuobjdump -sass flash_attention: {len(hgmma)} HGMMA instructions "
+        f"({', '.join(shapes)}), e.g. {hgmma[0]}")
 
 
 # ---------------------------------------------------------------------------
@@ -412,23 +433,29 @@ def run_skew_path(dev, db) -> dict[str, int]:
 
 
 def check_hash_probe(dev, n: int, m: int) -> dict:
+    """60 M probes into 15 M unique keys at cap 16, the SF 10 hash join's
+    shape: the probe bit for bit against its plain version and timed;
+    then, through the join's own ``build_index`` and ``probe_index``
+    (``tools/time_hash_join.py::time_index``), the hash index's build
+    (plain PyTorch), probe and both together, and beside them the sorted
+    index over the same keys, the path a planner would choose against."""
     import torch
     from repro_torch.kernels.hash_probe import ops, ref
     g = torch.Generator(device=dev).manual_seed(SEED)
     build = torch.randperm(m, generator=g, device=dev) + 1       # orderkeys
     rows = torch.arange(m, dtype=torch.int32, device=dev)
     buckets = max(128, ops.next_pow2(2 * m) // 4)
-    bk_lo, bk_hi, bv, ov = ops.build_bucket_table64(build, rows, buckets,
-                                                   cap=16)
+    heads, tails, ov = ops.build_bucket_table64(build, rows, buckets,
+                                                cap=16)
     if bool(ov):
         raise AssertionError("hash_probe build overflowed")
     probe = torch.randint(1, m + m // 10, (n,), generator=g, device=dev)
-    got = ops.hash_probe64(probe, bk_lo, bk_hi, bv)
+    got = ops.hash_probe64(probe, heads, tails)
     chunk = 10_000_000
 
     def plain():
-        return torch.cat([ref.hash_probe64_ref(probe[i:i + chunk], bk_lo,
-                                               bk_hi, bv)
+        return torch.cat([ref.hash_probe64_ref(probe[i:i + chunk], heads,
+                                               tails)
                           for i in range(0, n, chunk)])
 
     want = plain()
@@ -438,15 +465,27 @@ def check_hash_probe(dev, n: int, m: int) -> dict:
     if not torch.equal(build[got[hit].long()], probe[hit]) or \
             int(hit.sum()) != int((probe <= m).sum()):
         raise AssertionError("hash_probe64 matched wrong rows")
-    ms = time_ms(lambda: ops.hash_probe64(probe, bk_lo, bk_hi, bv))
+
+    ms = time_ms(lambda: ops.hash_probe64(probe, heads, tails))
     plain_ms = time_ms(plain, reps=2)
-    # what a probe must move: each key read, each row written, and each
-    # occupied lane (lo, hi, row) read once; empty lanes carry nothing
-    occupied = int((bv >= 0).sum())
-    nbytes = n * (8 + 4) + occupied * 12
-    log(f"hash_probe64 n={n} build={m} B={buckets} C=16 occupied={occupied}: "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (no single library "
-        f"call), bound {bound(nbytes)[0]:.3f} ms; exact")
+    sys.path.insert(0, str(ROOT / "tools"))
+    from time_hash_join import time_index
+    joins = time_index(build, probe)
+    # the function's bytes: each probe key read and each row written once,
+    # each kept build key and its row (12 bytes) read once; the layout's own
+    # floor reads the 32-byte heads of all buckets and 16 bytes a tail entry
+    kept = int(heads[:, 6].long().sum())
+    spilled = int((heads[:, 6].long() - 2).clamp(min=0).sum())
+    nbytes = n * (8 + 4) + kept * 12
+    layout_bytes = n * (8 + 4) + heads.numel() * 4 + spilled * 16
+    log(f"hash_probe64 n={n} build={m} B={buckets} cap=16 kept={kept} tail "
+        f"entries={spilled}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (no "
+        f"single library call), bound {bound(nbytes)[0]:.3f} ms (the heads "
+        f"+ tails layout's own floor {bound(layout_bytes)[0]:.3f} ms); exact")
+    for method, t in joins.items():
+        log(f"build_index + probe_index, {method}, same keys: build "
+            f"{t['build_ms']:.3f} ms, probe {t['probe_ms']:.3f} ms, build and "
+            f"probe {t['build_and_probe_ms']:.3f} ms")
     return kernel_entry(
         "hash_probe64", "src/repro_torch/kernels/csrc/hash_probe.cu",
         "src/repro/kernels/hash_probe/kernel.py:87", ms, plain_ms, None, 0.0,
@@ -725,14 +764,42 @@ def check_hash_probe32(dev, probe_np, build_np) -> tuple[dict, dict]:
     return entry, counts
 
 
+def excess(got, want, rtol, atol) -> float:
+    """Largest |got - want| - (atol + rtol |want|): at most 0 passes."""
+    want = want.float()
+    return ((got.float() - want).abs() - rtol * want.abs() - atol) \
+        .max().item()
+
+
+def single_rounded_p(q, k, v, group: int):
+    """Causal attention with P rounded to bf16 once before the P.V product,
+    float32 otherwise: what a tensor-core kernel without the P_hi + P_lo
+    split would compute.  One (batch, query head) at a time."""
+    import torch
+    b, hq, s, d = q.shape
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    out = torch.empty_like(q)
+    for i in range(b):
+        for h in range(hq):
+            sc = (q[i, h].float() @ k[i, h // group].float().T) / d ** 0.5
+            sc = sc.masked_fill(~causal, float("-inf"))
+            p = torch.exp(sc - sc.amax(-1, keepdim=True))
+            o = p.to(torch.bfloat16).float() @ v[i, h // group].float()
+            out[i, h] = (o / p.sum(-1, keepdim=True)).to(q.dtype)
+    return out
+
+
 def check_flash(dev) -> dict:
     """The LM path's attention shape (``FLASH_SHAPE``), causal, against the
     plain version and timed beside ``F.scaled_dot_product_attention``.  In
-    float32 within ``FLASH_F32_TOL`` (the same arithmetic in another order);
-    in bf16 within one output rounding of the plain version element by
-    element (``FLASH_BF16_RTOL``, ``FLASH_BF16_ATOL``) and within 2e-2 max
-    abs.  Late rows average thousands of keys, so their outputs are ~0.04:
-    a fixed absolute limit of 2e-2 alone would pass a wrong kernel there."""
+    float32 (the CUDA-core design) within ``FLASH_F32_TOL`` (the same
+    arithmetic in another order); in bf16 (the tensor-core design) within
+    one output rounding of the plain version element by element
+    (``FLASH_BF16_RTOL``, ``FLASH_BF16_ATOL``) and within 2e-2 max abs.
+    Late rows average thousands of keys, so their outputs are ~0.04: a
+    fixed absolute limit of 2e-2 alone would pass a wrong kernel there.
+    Then the tensor-core design at its other head sizes, at a shorter
+    sequence, both masks, under the same limits."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -751,12 +818,6 @@ def check_flash(dev) -> dict:
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                               enable_gqa=True)
 
-    def excess(got, want, rtol, atol) -> float:
-        """Largest |got - want| - (atol + rtol |want|): at most 0 passes."""
-        want = want.float()
-        return ((got.float() - want).abs() - rtol * want.abs() - atol) \
-            .max().item()
-
     q32, k32, v32 = q.float(), k.float(), v.float()
     got32, want32 = ops.flash_attention(q32, k32, v32, causal=True), \
         plain(q32, k32, v32)
@@ -767,19 +828,35 @@ def check_flash(dev) -> dict:
     err = (got.float() - want.float()).abs().max().item()
     over16 = excess(got, want, FLASH_BF16_RTOL, FLASH_BF16_ATOL)
     rel = rel_l2(got, want)
-    lib_err = (library().float() - want.float()).abs().max().item()
-    del got, want
-    log(f"flash_attention {FLASH_SHAPE} causal: float32 max abs err "
-        f"{err32:.3e} (largest excess over atol = rtol = {FLASH_F32_TOL}: "
-        f"{over32:.3e}); bf16 max abs err {err:.3e}, relative L2 {rel:.3e}, "
-        f"largest excess over one output rounding (rtol {FLASH_BF16_RTOL}, "
-        f"atol {FLASH_BF16_ATOL}): {over16:.3e}")
+    once = single_rounded_p(q, k, v, hq // hkv)
+    over_once = excess(once, want, FLASH_BF16_RTOL, FLASH_BF16_ATOL)
+    n_once = int(((once.float() - want.float()).abs() >
+                  FLASH_BF16_RTOL * want.float().abs() + FLASH_BF16_ATOL)
+                 .sum())
+    del once
+    lib = library()
+    lib_err = (lib.float() - want.float()).abs().max().item()
+    lib_over = excess(lib, want, FLASH_BF16_RTOL, FLASH_BF16_ATOL)
+    del got, want, lib
+    log(f"flash_attention {FLASH_SHAPE} causal: float32 "
+        f"({ops.design(torch.float32, d)}) max abs err {err32:.3e} (largest "
+        f"excess over atol = rtol = {FLASH_F32_TOL}: {over32:.3e}); bf16 "
+        f"({ops.design(torch.bfloat16, d)}) max abs err {err:.3e}, relative "
+        f"L2 {rel:.3e}, largest excess over one output rounding (rtol "
+        f"{FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}): {over16:.3e}; "
+        f"with P rounded to bf16 once (plain PyTorch) instead of P_hi + "
+        f"P_lo: {over_once:.3e}, {n_once} of {q.numel()} elements over; "
+        f"scaled_dot_product_attention's: {lib_over:.3e}")
     if not over32 <= 0:
         raise AssertionError(f"flash_attention float32: beyond {FLASH_F32_TOL}"
                              f" of the plain version by {over32}")
     if not (over16 <= 0 and err <= 2e-2):
         raise AssertionError(f"flash_attention bf16: max abs err {err}, "
                              f"beyond one output rounding by {over16}")
+    if not over_once > 0:
+        raise AssertionError("flash_attention bf16: P rounded to bf16 once "
+                             "stays within the element-wise limit, so the "
+                             "limit no longer tells it from P_hi + P_lo")
     ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
     plain_ms = time_ms(lambda: plain(q, k, v), reps=2)
     lib_ms = time_ms(library)
@@ -789,7 +866,32 @@ def check_flash(dev) -> dict:
         f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
         f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms "
         f"(max abs err {lib_err:.3e} against plain), bound "
-        f"{bound(nbytes, flops)[0]:.3f} ms ({bound(nbytes, flops)[1]})")
+        f"{bound(nbytes, flops)[0]:.3f} ms ({bound(nbytes, flops)[1]}); "
+        f"the design's own 1.5x tensor work (P_hi + P_lo) "
+        f"{bound(nbytes, 1.5 * flops)[0]:.3f} ms")
+    del q, k, v
+    for hd in ops.WGMMA_HEAD_DIMS:
+        if hd == d:
+            continue
+        shape = (1, 8, 2, 1024, hd)
+        q, k, v = (torch.randn(shape[:1] + (h,) + shape[3:], generator=g,
+                               device=dev).to(torch.bfloat16)
+                   for h in (shape[1], shape[2], shape[2]))
+        for causal in (True, False):
+            got = ops.flash_attention(q, k, v, causal=causal)
+            want = ref.attention_ref(q.reshape(-1, 1024, hd),
+                                     k.reshape(-1, 1024, hd),
+                                     v.reshape(-1, 1024, hd),
+                                     causal=causal).reshape(got.shape)
+            over = excess(got, want, FLASH_BF16_RTOL, FLASH_BF16_ATOL)
+            err_hd = (got.float() - want.float()).abs().max().item()
+            log(f"flash_attention {shape} causal={causal} bf16 "
+                f"({ops.design(torch.bfloat16, hd)}): max abs err "
+                f"{err_hd:.3e}, largest excess over one output rounding "
+                f"{over:.3e}")
+            if not (over <= 0 and err_hd <= 2e-2):
+                raise AssertionError(f"flash_attention bf16 D={hd}: beyond "
+                                     f"one output rounding by {over}")
     return kernel_entry(
         "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:67", ms, plain_ms,
@@ -836,10 +938,13 @@ def run_lm_path(dev) -> dict[str, int]:
             raise AssertionError(f"forward: logits {tuple(logits.shape)} "
                                  f"not finite or of the wrong shape")
         del logits
-        if counts["flash_attention"] != cfg.n_layers:
-            raise AssertionError(f"forward launched flash_attention "
-                                 f"{counts['flash_attention']} times, want "
-                                 f"{cfg.n_layers}")
+        if not counts["flash_attention"] == \
+                counts["flash_attention_wgmma"] == cfg.n_layers:
+            raise AssertionError(
+                f"forward launched flash_attention "
+                f"{counts['flash_attention']} times, "
+                f"{counts['flash_attention_wgmma']} of them the tensor-core "
+                f"design; want {cfg.n_layers} and {cfg.n_layers}")
         runs = []
         for _ in range(REPS):
             s = time.perf_counter()
@@ -987,8 +1092,9 @@ def main() -> int:
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} s")
     for name, text in K.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    check_tensor_core_sass(K)
 
     from repro_torch.data import tpch
     t0 = time.perf_counter()

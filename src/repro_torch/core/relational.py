@@ -202,7 +202,8 @@ class BuildIndex:
     (build table, key) pair and cached per plan by the backend.
 
       * ``sorted``: keys sorted once, probes are ``searchsorted``.
-      * ``hash``: (B, C) bucket table of 32-bit key planes probed by the
+      * ``hash``: bucket table (a 32-byte head per bucket with its first
+        two keys, and the ``tails`` entries of the rest) probed by the
         ``kernels/hash_probe`` kernel — fixed probe length, no log factor.
     """
 
@@ -211,9 +212,8 @@ class BuildIndex:
     overflow: torch.Tensor
     sorted_keys: torch.Tensor | None = None
     sorted_rows: torch.Tensor | None = None
-    bk_lo: torch.Tensor | None = None
-    bk_hi: torch.Tensor | None = None
-    bvals: torch.Tensor | None = None
+    heads: torch.Tensor | None = None
+    tails: torch.Tensor | None = None
 
 
 def build_index(build: Table, build_key: torch.Tensor, method: str = "sorted",
@@ -230,10 +230,10 @@ def build_index(build: Table, build_key: torch.Tensor, method: str = "sorted",
         raise ValueError(f"unknown join method {method!r}")
     rows = torch.arange(build.capacity, dtype=_I32, device=bkey.device)
     buckets = max(128, _hp_ops.next_pow2(2 * max(1, build.capacity)) // 4)
-    bk_lo, bk_hi, bv, ov = _hp_ops.build_bucket_table64(
+    heads, tails, ov = _hp_ops.build_bucket_table64(
         bkey, rows, buckets, cap=bucket_cap, valid=bkey != KEY_SENTINEL)
-    return BuildIndex("hash", build.capacity, ov,
-                      bk_lo=bk_lo, bk_hi=bk_hi, bvals=bv)
+    return BuildIndex("hash", build.capacity, ov, heads=heads,
+                      tails=tails)
 
 
 def probe_index(index: BuildIndex, probe_key: torch.Tensor,
@@ -247,7 +247,7 @@ def probe_index(index: BuildIndex, probe_key: torch.Tensor,
         matched = (index.sorted_keys[pos] == pk) & probe_valid & \
             (pk != KEY_SENTINEL)
         return matched, index.sorted_rows[pos]
-    row = _hp_ops.hash_probe64(pk, index.bk_lo, index.bk_hi, index.bvals)
+    row = _hp_ops.hash_probe64(pk, index.heads, index.tails)
     matched = (row >= 0) & probe_valid & (pk != KEY_SENTINEL)
     return matched, torch.clamp(row, min=0).to(_I64)
 

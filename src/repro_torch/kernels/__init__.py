@@ -29,7 +29,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["KERNELS", "launches", "reset_launches", "count_launch", "build",
-           "load", "check", "stream_of", "ptr", "dtype_code", "BUILD_DIR"]
+           "load", "check", "stream_of", "ptr", "dtype_code", "nvcc",
+           "library_path", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <checkout>/build/repro_torch_kernels: the `build/` line of .gitignore
@@ -41,8 +42,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # one launch counter per kernel; its wrapper adds one where it launches it
+# (flash_attention counts every launch of either attention design,
+# flash_attention_wgmma those of the tensor-core design alone)
 KERNELS = ("segsum_sum", "segsum_minmax", "hash_insert", "hash_probe64",
-           "counting_rank", "radix_hist", "hash_probe32", "flash_attention")
+           "counting_rank", "radix_hist", "hash_probe32", "flash_attention",
+           "flash_attention_wgmma")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 # the ranks of a ThreadGroup launch from threads of one process: counting and
 # first-use loading (one build per source) take this lock
@@ -75,7 +79,8 @@ def dtype_code(dt: torch.dtype) -> int:
         raise TypeError(f"kernel does not take dtype {dt}") from None
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of the CUDA compiler (on PATH, else the toolkit's default)."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -86,7 +91,8 @@ def _nvcc() -> str:
                        "built at first use and need the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
     for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
@@ -103,16 +109,16 @@ def build(names=SOURCES) -> dict[str, float]:
     todo, seconds = {}, {}
     for name in names:
         seconds[name] = 0.0
-        if not _target(name).exists():
-            todo[name] = _target(name)
+        if not library_path(name).exists():
+            todo[name] = library_path(name)
     if not todo:
         return seconds
-    nvcc = _nvcc()
+    compiler = nvcc()
     procs = {}
     t0 = time.perf_counter()
     for name, out in todo.items():
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [compiler, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -139,7 +145,7 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             for fn, argtypes in signatures.items():

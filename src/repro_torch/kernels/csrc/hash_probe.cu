@@ -1,68 +1,72 @@
-// Hash-join probes of a (B, C) bucket table: build row or -1.  Two entry
-// points: hash_probe64, described here, and hash_probe32, at the end.
+// Hash-join probes of a bucket table: build row or -1.  Two entry points:
+// hash_probe64, described here, and hash_probe32, at the end.
 //
 // hash_probe64 replaces
 // repro/kernels/hash_probe/kernel.py::hash_probe64_pallas, which holds the
-// whole bucket table resident in VMEM and compares a block of probe rows
-// against all C lanes of their buckets at once.
+// whole (B, C) bucket table resident in VMEM and compares a block of probe
+// rows against all C lanes of their buckets at once.
 //
-// Bound on an H100: bytes.  What a probe must move is its 8-byte key, its
-// 4-byte result, and the occupied lanes of the bucket table (12 bytes each:
-// lo, hi and row); the empty lanes hold nothing it needs.  At SF 10 that is
-// 60 M probes into 15 M build keys, about 0.9 GB, or 0.27 ms at 3.35 TB/s.
-// With random keys each probe's bucket lies in its own 32-byte sectors of
-// the three planes, which L2 (50 MB) cannot keep across a 1.6 GB table, so
-// the kernel moves scattered sectors well above that floor.
+// Bound on an H100: bytes.  What a probe must move is its 8-byte key and its
+// 4-byte result; the table is read once: a 32-byte head per bucket and a
+// 16-byte entry per key past a bucket's second.  At SF 10 that is 60 M
+// probes into 15 M build keys (B 2^23), about 1.1 GB, or 0.33 ms at
+// 3.35 TB/s.  With random keys each probe's bucket lies in its own sectors
+// of a table that L2 (50 MB) cannot keep, so the kernel moves scattered
+// sectors above that floor.
 //
-// Design.  One thread per probe row: split the key into its (lo, hi) planes,
-// hash with the shared bucket_of and scan the bucket's lanes.  The build
-// (kernels/hash_probe/ops.py) fills a bucket's lanes front to back with
-// distinct keys and non-negative build rows, and marks empty lanes with
-// row -1, so the scan stops at the first match or the first empty lane —
-// the same answer as the reference's max over all C lanes, reading only the
-// sectors of the occupied lanes (about two at the default load).  The lanes
-// are loaded 4 at a time, the 12 loads of a group independent of each other
-// (a lane past C reads as empty), so a probe costs one round trip to memory
-// instead of a chain of dependent ones, for any C.
+// Design.  The build (kernels/hash_probe/ops.py) gives each bucket one
+// 32-byte head, aligned to a sector: its first two keys (int64), their
+// rows, its key count n and where its keys 3..n start in a tail array
+// of 16-byte (key, row) entries packed bucket after bucket.  A bucket's
+// keys are distinct and ascending, so the first match is the reference's
+// max over the lanes.  One thread per probe row: split the key into (lo,
+// hi), hash with the shared bucket_of, read the head with two 16-byte
+// loads of one sector, compare two keys, and only when the bucket holds
+// more keys and neither matched read its tail entries, two at a time.
+// At the default load (under two keys a bucket) most probes end after one
+// random sector.  Packing the buckets alone (offsets, then entries) costs
+// two dependent random sectors a probe; the reference's (B, C) planes of
+// lo, hi and row cost three.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLanes = 4;        // lanes loaded together
 
 __global__ void __launch_bounds__(kThreads)
 hash_probe64_kernel(const long long* __restrict__ keys, long long n,
-                    const int32_t* __restrict__ bk_lo,
-                    const int32_t* __restrict__ bk_hi,
-                    const int32_t* __restrict__ bvals, int buckets, int cap,
+                    const int4* __restrict__ heads,
+                    const longlong2* __restrict__ tails, int buckets,
                     int32_t* __restrict__ out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const long long key = keys[i];
   int32_t lo, hi;
-  split64(keys[i], lo, hi);
-  const size_t base = static_cast<size_t>(bucket_of(lo, hi, static_cast<uint32_t>(buckets))) * cap;
+  split64(key, lo, hi);
+  const int4* head =
+      heads + 2 * static_cast<size_t>(bucket_of(lo, hi, static_cast<uint32_t>(buckets)));
+  const longlong2 first = __ldg(reinterpret_cast<const longlong2*>(head));
+  const int4 meta = __ldg(head + 1);          // row 0, row 1, n, tail start
   int32_t v = -1;
-  for (int c = 0; c < cap; c += kLanes) {
-    int32_t r[kLanes], l[kLanes], h[kLanes];
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) {
-      const bool in = c + j < cap;
-      r[j] = in ? __ldg(bvals + base + c + j) : -1;
-      l[j] = in ? __ldg(bk_lo + base + c + j) : 0;
-      h[j] = in ? __ldg(bk_hi + base + c + j) : 0;
-    }
-    bool done = false;
-#pragma unroll
-    for (int j = 0; j < kLanes && !done; ++j) {
-      if (r[j] < 0) {                                 // end of the bucket
-        done = true;
-      } else if (l[j] == lo && h[j] == hi) {
-        v = r[j];
-        done = true;
+  if (meta.z > 0 && first.x == key) {
+    v = meta.x;
+  } else if (meta.z > 1 && first.y == key) {
+    v = meta.y;
+  } else {
+    const int32_t end = meta.w + meta.z - 2;
+    for (int32_t e = meta.w; e < end; e += 2) {
+      const bool two = e + 1 < end;
+      const longlong2 r0 = __ldg(tails + e);
+      const longlong2 r1 = two ? __ldg(tails + e + 1) : r0;
+      if (r0.x == key) {
+        v = static_cast<int32_t>(r0.y);
+        break;
+      }
+      if (two && r1.x == key) {
+        v = static_cast<int32_t>(r1.y);
+        break;
       }
     }
-    if (done) break;
   }
   out[i] = v;
 }
@@ -93,18 +97,19 @@ hash_probe32_kernel(const int32_t* __restrict__ keys, long long n,
 
 }  // namespace
 
-// keys (n,) int64 vs bucket planes (buckets, cap) int32 -> out (n,) int32.
-// Build rows must be non-negative: -1 marks an empty lane.
-REPRO_EXPORT int hash_probe64(const void* keys, long long n, const void* bk_lo,
-                              const void* bk_hi, const void* bvals, int buckets,
-                              int cap, void* out, void* stream) {
+// keys (n,) int64 vs a bucket table: heads (buckets, 8) int32, tails
+// (R, 2) int64 (key, row) -> out (n,) int32.
+REPRO_EXPORT int hash_probe64(const void* keys, long long n, const void* heads,
+                              const void* tails, int buckets, void* out,
+                              void* stream) {
   if (n == 0) return cudaSuccess;
+  if (buckets <= 0) return cudaErrorInvalidValue;
   const long long blocks = (n + kThreads - 1) / kThreads;
   hash_probe64_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(keys), n, static_cast<const int32_t*>(bk_lo),
-      static_cast<const int32_t*>(bk_hi), static_cast<const int32_t*>(bvals),
-      buckets, cap, static_cast<int32_t*>(out));
+      static_cast<const long long*>(keys), n, static_cast<const int4*>(heads),
+      static_cast<const longlong2*>(tails), buckets,
+      static_cast<int32_t*>(out));
   return cudaGetLastError();
 }
 

@@ -2,8 +2,11 @@
 
 ``flash_attention`` flattens (batch, heads) as the reference's wrapper does:
 query head ``bh`` of the flattened ``B * Hq`` reads kv head ``bh // group``
-of the flattened ``B * Hkv``.  On a CUDA tensor it launches
-``csrc/flash_attention.cu``; on a CPU tensor it runs the plain version
+of the flattened ``B * Hkv``.  On a CUDA tensor it launches one of the two
+designs of ``csrc/flash_attention.cu``, chosen by :func:`design` from the
+dtype and the head size alone: bf16 at head sizes 64, 128 and 256 runs on
+the tensor cores (``wgmma``, TMA), everything else on the CUDA cores in
+float32.  On a CPU tensor it runs the plain version
 (``ref.attention_ref``).  The reference's ``use_kernel=``, ``interpret=``,
 ``q_blk=`` and ``kv_blk=`` were TPU-era arguments and are not carried over:
 the kernel picks its tiles from the head size, and masks a ragged sequence
@@ -18,14 +21,32 @@ import torch
 from repro_torch import kernels as K
 from .ref import attention_ref
 
-__all__ = ["HEAD_DIMS", "flash_attention", "attention_ref"]
+__all__ = ["HEAD_DIMS", "WGMMA_HEAD_DIMS", "design", "flash_attention",
+           "attention_ref"]
 
-HEAD_DIMS = (32, 64, 96, 128, 256)      # the kernel's template instances
+HEAD_DIMS = (32, 64, 96, 128, 256)      # the CUDA-core kernel's instances
+WGMMA_HEAD_DIMS = (64, 128, 256)        # the tensor-core kernel's, bf16 only
 _DTYPES = (torch.float32, torch.bfloat16)
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _SIGNATURES = {"flash_attention": [_i, _c, _c, _c, _c, _i, _i, _i, _i, _i,
-                                   _i, _c]}
+                                   _i, _c],
+               "flash_attention_wgmma": [_c, _c, _c, _c, _i, _i, _i, _i, _i,
+                                         _i, _c]}
+
+
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call of (dtype, head size) launches: ``"wgmma"``
+    (bf16 on the tensor cores) or ``"cuda_cores"`` (float32 arithmetic)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_cores"
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its base is 16-byte aligned (what a TMA tensor map
+    needs), else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -60,10 +81,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if skv == 0:
         raise ValueError("flash_attention: no keys to attend to")
     lib = K.load("flash_attention", _SIGNATURES)
+    kind = design(q.dtype, d)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention(K.dtype_code(q.dtype), K.ptr(q), K.ptr(k),
-                                 K.ptr(v), K.ptr(out), b * hq, hq // hkv, sq,
-                                 skv, d, int(causal), K.stream_of(q))
-    K.check(lib, rc, "flash_attention")
+        if kind == "wgmma":
+            q, k, v = (_aligned(t) for t in (q, k, v))
+            rc = lib.flash_attention_wgmma(
+                K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(out), b * hq, hq // hkv,
+                sq, skv, d, int(causal), K.stream_of(q))
+        else:
+            rc = lib.flash_attention(
+                K.dtype_code(q.dtype), K.ptr(q), K.ptr(k), K.ptr(v),
+                K.ptr(out), b * hq, hq // hkv, sq, skv, d, int(causal),
+                K.stream_of(q))
+    K.check(lib, rc, f"flash_attention ({kind})")
     K.count_launch("flash_attention")
+    if kind == "wgmma":
+        K.count_launch("flash_attention_wgmma")
     return out

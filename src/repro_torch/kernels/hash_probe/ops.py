@@ -4,12 +4,28 @@ the hash joins, and the 32-bit probe with its end-to-end join entry point.
 The 64-bit build stays plain PyTorch, as the reference builds it outside
 Pallas: one stable lexicographic sort by (bucket, key), written as two
 stable argsorts (least significant key first), then a dedup and a rank
-within each bucket.
-A bucket holding more than ``cap`` distinct keys raises the overflow flag, so
-the caller re-executes with larger buckets (the runner's capacity factor).
+within each bucket.  Its buckets hold what the reference's (B, C) planes
+hold: a bucket's first ``cap`` distinct keys in ascending order, each with
+the first row of its key.  They are stored so that a probe usually reads
+one 32-byte sector:
+
+  ``heads``     (B, 8) int32, one 32-byte head a bucket: its first two keys
+                (int64, columns 0-3), their rows (4, 5), its key count n
+                (6) and where its other keys start in ``tails`` (7);
+  ``tails``     (R, 2) int64 (key, row) entries: keys 3..n of every
+                bucket, packed bucket after bucket.
+
+At the default load (under two keys a bucket) most probes end in the head;
+the rest read one or two more sectors of ``tails``.  The build writes
+the heads and 16 bytes per further key, where the reference's three (B, C)
+int32 planes cost three scattered sectors a probe and a fill of B x C lanes.
+A bucket holding more than ``cap`` distinct keys raises the overflow flag,
+so the caller re-executes with larger buckets (the runner's capacity
+factor).
 
 The 32-bit build is the reference's: one stable argsort by bucket and a
-rank within each bucket, with no dedup (build keys are unique by contract).
+rank within each bucket, with no dedup (build keys are unique by contract),
+into (B, C) planes.
 
 ``hash_probe64`` and ``hash_probe32`` launch ``csrc/hash_probe.cu`` on a CUDA
 tensor and run their plain versions (``ref.hash_probe64_ref``,
@@ -33,8 +49,8 @@ __all__ = ["SENTINEL", "next_pow2", "build_bucket_table64", "hash_probe64",
 
 SENTINEL = -2147483648          # empty lane of both key planes
 _c = ctypes.c_void_p
-_SIGNATURES = {"hash_probe64": [_c, ctypes.c_longlong, _c, _c, _c,
-                                ctypes.c_int, ctypes.c_int, _c, _c],
+_SIGNATURES = {"hash_probe64": [_c, ctypes.c_longlong, _c, _c, ctypes.c_int,
+                                _c, _c],
                "hash_probe32": [_c, ctypes.c_longlong, _c, _c, ctypes.c_int,
                                 ctypes.c_int, _c, _c]}
 
@@ -46,11 +62,14 @@ def next_pow2(x: int) -> int:
 
 def build_bucket_table64(keys: torch.Tensor, vals: torch.Tensor, buckets: int,
                          cap: int = 16, valid: torch.Tensor | None = None):
-    """(m,) int64 keys -> ((B,C) lo, (B,C) hi, (B,C) vals, overflowed).
+    """(m,) int64 keys -> ((B, 8) int32 heads, (R, 2) int64 tails,
+    overflowed).
 
     Invalid rows (``valid`` False) go to a virtual bucket and are dropped.
     Duplicate keys are kept once (their first row), so membership probes
-    accept non-unique build sides without inflating a bucket.
+    accept non-unique build sides without inflating a bucket.  Only a
+    bucket's first ``cap`` distinct keys are kept; a bucket with more raises
+    the flag.
     """
     dev = keys.device
     m = keys.shape[0]
@@ -71,47 +90,52 @@ def build_bucket_table64(keys: torch.Tensor, vals: torch.Tensor, buckets: int,
     start = torch.zeros(buckets + 1, dtype=torch.int64, device=dev)
     start[1:] = torch.cumsum(counts, 0)
     rank = torch.cumsum(keep.to(torch.int64), 0) - 1   # rank among kept
-    slot = rank - start[sb.clamp(max=buckets)]
+    slot = rank - start[sb]                             # rank in its bucket
     ok = keep & (slot < cap)
-    flat = torch.where(ok, sb * cap + slot.clamp(max=cap - 1), buckets * cap)
+    kept = counts.clamp(max=cap)
+    spill = torch.zeros(buckets + 1, dtype=torch.int64, device=dev)
+    spill[1:] = torch.cumsum((kept - 2).clamp(min=0), 0)
+    rows = vals[order]
+    # the rows kept, in (bucket, key) order: a bucket's first two go to its
+    # head, the rest to the tails, where they land bucket after bucket
+    head = torch.nonzero(ok & (slot < 2)).squeeze(1)
+    tail = torch.nonzero(ok & (slot >= 2)).squeeze(1)
+    heads = torch.zeros((buckets, 8), dtype=torch.int32, device=dev)
+    hb, lane = sb[head], slot[head]
+    heads.view(torch.int64)[hb, lane] = sk[head]
+    heads[hb, 4 + lane] = rows[head].to(torch.int32)
+    heads[:, 6] = kept.to(torch.int32)
+    heads[:, 7] = spill[:buckets].to(torch.int32)
+    tails = torch.stack([sk[tail], rows[tail].to(torch.int64)], dim=1)
+    return heads, tails, (counts > cap).any()
 
-    def plane(fill: int, src: torch.Tensor) -> torch.Tensor:
-        # one extra slot absorbs every dropped row, then is cut off
-        out = torch.full((buckets * cap + 1,), fill, dtype=torch.int32,
-                         device=dev)
-        out[flat] = src.to(torch.int32)
-        return out[:-1].reshape(buckets, cap)
 
-    return (plane(SENTINEL, lo[order]), plane(SENTINEL, hi[order]),
-            plane(-1, vals[order]), (counts > cap).any())
-
-
-def hash_probe64(probe_keys: torch.Tensor, bk_lo: torch.Tensor,
-                 bk_hi: torch.Tensor, bvals: torch.Tensor) -> torch.Tensor:
+def hash_probe64(probe_keys: torch.Tensor, heads: torch.Tensor,
+                 tails: torch.Tensor) -> torch.Tensor:
     """(n,) int64 probe keys vs a 64-bit bucket table -> build row or -1
     (int32).  The table is one made by :func:`build_bucket_table64` from
-    non-negative build rows: lanes fill front to back and -1 marks an empty
-    lane, which lets the kernel stop a bucket's scan early."""
-    if bk_lo.ndim != 2 or not bk_lo.shape == bk_hi.shape == bvals.shape:
-        raise ValueError("hash_probe64: bucket planes must share one (B, C) "
-                         "shape")
+    non-negative build rows; a bucket's keys are distinct, so the first
+    match is the only one."""
+    if heads.ndim != 2 or heads.shape[1] != 8 or tails.ndim != 2 or \
+            tails.shape[1] != 2:
+        raise ValueError("hash_probe64: the table is (B, 8) heads and "
+                         "(R, 2) tail entries")
     if probe_keys.device.type == "cpu":
-        return hash_probe64_ref(probe_keys, bk_lo, bk_hi, bvals)
+        return hash_probe64_ref(probe_keys, heads, tails)
     if probe_keys.device.type != "cuda":
         raise ValueError(f"hash_probe64: unsupported device {probe_keys.device}")
     keys = probe_keys.to(torch.int64).contiguous()
-    for t in (bk_lo, bk_hi, bvals):
-        if t.dtype != torch.int32 or t.device != keys.device:
-            raise TypeError("hash_probe64: bucket planes must be int32 on "
-                            "the probe keys' device")
-    bk_lo, bk_hi, bvals = (t.contiguous() for t in (bk_lo, bk_hi, bvals))
-    buckets, cap = bk_lo.shape
+    if heads.dtype != torch.int32 or tails.dtype != torch.int64 or \
+            heads.device != keys.device or tails.device != keys.device:
+        raise TypeError("hash_probe64: heads must be int32 and tails "
+                        "int64 on the probe keys' device")
+    heads, tails = heads.contiguous(), tails.contiguous()
     out = torch.empty(keys.shape[0], dtype=torch.int32, device=keys.device)
     lib = K.load("hash_probe", _SIGNATURES)
     with torch.cuda.device(keys.device):
-        rc = lib.hash_probe64(K.ptr(keys), keys.shape[0], K.ptr(bk_lo),
-                              K.ptr(bk_hi), K.ptr(bvals), buckets, cap,
-                              K.ptr(out), K.stream_of(keys))
+        rc = lib.hash_probe64(K.ptr(keys), keys.shape[0], K.ptr(heads),
+                              K.ptr(tails), heads.shape[0], K.ptr(out),
+                              K.stream_of(keys))
     K.check(lib, rc, "hash_probe64")
     K.count_launch("hash_probe64")
     return out

@@ -33,14 +33,32 @@ def bucket_of(lo: torch.Tensor, hi: torch.Tensor, buckets: int
     return murmur32(mixed) % buckets
 
 
-def hash_probe64_ref(probe_keys: torch.Tensor, bk_lo: torch.Tensor,
-                     bk_hi: torch.Tensor, bvals: torch.Tensor) -> torch.Tensor:
-    """(n,) int64 probe keys vs a (B, C) bucket table -> build row or -1."""
-    lo, hi = split64(probe_keys)
-    b = bucket_of(lo, hi, bk_lo.shape[0])
-    hit = (bk_lo[b] == lo[:, None]) & (bk_hi[b] == hi[:, None])   # (n, C)
-    neg = torch.full((), -1, dtype=bvals.dtype, device=bvals.device)
-    return torch.where(hit, bvals[b], neg).amax(dim=1)
+def hash_probe64_ref(probe_keys: torch.Tensor, heads: torch.Tensor,
+                     tails: torch.Tensor) -> torch.Tensor:
+    """(n,) int64 probe keys vs a 64-bit bucket table ((B, 8) int32 heads:
+    two keys, their rows, the key count n and the start of keys 3..n in
+    the (R, 2) int64 (key, row) ``tails``) -> build row or -1 (int32):
+    the matching key among the bucket's n."""
+    keys = probe_keys.to(torch.int64)
+    lo, hi = split64(keys)
+    h = heads[bucket_of(lo, hi, heads.shape[0])]                # (n, 8)
+    count, start = h[:, 6].to(torch.int64), h[:, 7].to(torch.int64)
+    neg = torch.full((), -1, dtype=torch.int64, device=keys.device)
+    lane = torch.arange(2, device=keys.device)
+    hit = (lane < count[:, None]) & \
+        (h.view(torch.int64)[:, :2] == keys[:, None])
+    row = torch.where(hit, h[:, 4:6].to(torch.int64), neg).amax(dim=1)
+    # the rest of the bucket, only where the head did not answer
+    need = torch.nonzero((row < 0) & (count > 2)).squeeze(1)
+    if need.numel():
+        width = int(count[need].max()) - 2
+        further = torch.arange(width, device=keys.device)
+        idx = start[need, None] + further
+        inside = further < (count[need] - 2)[:, None]           # (k, width)
+        e = tails[idx.clamp(max=tails.shape[0] - 1)]            # (k, width, 2)
+        hit = inside & (e[..., 0] == keys[need, None])
+        row[need] = torch.where(hit, e[..., 1], neg).amax(dim=1)
+    return row.to(torch.int32)
 
 
 def bucket_of32(keys: torch.Tensor, buckets: int) -> torch.Tensor:

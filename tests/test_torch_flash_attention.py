@@ -98,3 +98,20 @@ def test_rejects_other_devices():
     q = torch.zeros(1, 1, 4, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 32, "cuda_cores"),
+    (torch.bfloat16, 96, "cuda_cores"), (torch.float32, 64, "cuda_cores"),
+    (torch.float32, 128, "cuda_cores"), (torch.float32, 256, "cuda_cores")])
+def test_design_is_chosen_by_dtype_and_head_size(dtype, d, want):
+    """bf16 at the tensor-core kernel's head sizes runs it; every float32
+    call and the other head sizes run the CUDA-core kernel.  Each launch
+    counts under flash_attention, the tensor-core ones also under their own
+    counter."""
+    assert fa.design(dtype, d) == want
+    assert d in fa.HEAD_DIMS
+    assert (d in fa.WGMMA_HEAD_DIMS and dtype == torch.bfloat16) == \
+        (want == "wgmma")
+    assert {"flash_attention", "flash_attention_wgmma"} <= set(K.KERNELS)

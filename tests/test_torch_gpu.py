@@ -89,8 +89,9 @@ def test_hash_insert_kernel_vs_plain(cuda, cap, distinct):
 
 @pytest.mark.parametrize("cap", [16, 6])
 def test_hash_probe_kernel_vs_plain(cuda, cap):
-    """cap 6 ends its last 4-lane group past the bucket: those lanes must
-    read as empty."""
+    """Negative keys at about 1.5 keys a bucket; at cap 6 a few buckets
+    overflow and their keys past the cap must miss, as in the plain
+    version."""
     g = torch.Generator(device=cuda).manual_seed(0)
     m = 100_000
     build = torch.randperm(m, generator=g, device=cuda) - m // 2
@@ -98,8 +99,44 @@ def test_hash_probe_kernel_vs_plain(cuda, cap):
     table = hp.build_bucket_table64(build, rows, hp.next_pow2(2 * m) // 4,
                                     cap=cap)
     probe = torch.randint(-m, m, (300_000,), generator=g, device=cuda)
-    assert torch.equal(hp.hash_probe64(probe, *table[:3]),
-                       hp_ref.hash_probe64_ref(probe, *table[:3]))
+    K.reset_launches()
+    got = hp.hash_probe64(probe, *table[:2])
+    torch.cuda.synchronize()
+    assert K.launches["hash_probe64"] == 1
+    assert torch.equal(got, hp_ref.hash_probe64_ref(probe, *table[:2]))
+
+
+@pytest.mark.parametrize("cap", [16, 6])
+@pytest.mark.parametrize("keys_a_bucket", [1.5, 12])
+def test_hash_probe_kernel_vs_plain_duplicates_invalid_overflow(
+        cuda, cap, keys_a_bucket):
+    """Wide negative keys, duplicate build keys (the first row wins),
+    invalid build rows (never found) and, at 12 keys a bucket, an
+    overflowed build whose truncated buckets the kernel walks as the plain
+    version does; found rows hold the probed key."""
+    g = torch.Generator(device=cuda).manual_seed(cap)
+    m = 200_000
+    build = torch.randint(-2**62, 2**62, (m,), generator=g, device=cuda)
+    build[:1000] = build[1000:2000]                      # duplicates
+    valid = torch.rand(m, generator=g, device=cuda) < 0.9
+    rows = torch.randperm(m, generator=g, device=cuda).to(torch.int32)
+    buckets = max(128, int(m / keys_a_bucket))
+    heads, tails, ov = hp.build_bucket_table64(build, rows, buckets,
+                                               cap=cap, valid=valid)
+    lo, hi = hp.split64(torch.unique(build[valid]))
+    per_bucket = torch.bincount(hp.bucket_of(lo, hi, buckets),
+                                minlength=buckets)
+    assert bool(ov) == bool((per_bucket > cap).any())
+    if keys_a_bucket > cap:
+        assert bool(ov)
+    probe = torch.cat([build, torch.randint(-2**62, 2**62, (100_000,),
+                                            generator=g, device=cuda)])
+    got = hp.hash_probe64(probe, heads, tails)
+    assert torch.equal(got, hp_ref.hash_probe64_ref(probe, heads, tails))
+    hit = got >= 0
+    assert torch.equal(build[torch.argsort(rows)[got[hit].long()]],
+                       probe[hit])
+    assert not bool(hit[:m][~valid & ~torch.isin(build, build[valid])].any())
 
 
 def test_queries_on_card_launch_every_kernel(cuda):
@@ -228,6 +265,94 @@ def test_flash_attention_kernel_refuses(cuda):
     q = torch.zeros((1, 2, 16, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
+
+
+# the element-wise bf16 limit of chip_smoke.py: each side rounds its float32
+# result to bf16 once (2^-7 of |want| between them) plus the float32
+# tolerance near zero
+_BF16_RTOL, _BF16_ATOL = 8e-3, 2e-5
+
+
+def _excess(got, want):
+    """Largest |got - want| - (atol + rtol |want|): at most 0 passes."""
+    want = want.float()
+    return ((got.float() - want).abs() - _BF16_RTOL * want.abs()
+            - _BF16_ATOL).max().item()
+
+
+def _flash_case(q, k, v, causal):
+    """The kernel's output and the plain version's, (B, H, S, D) inputs."""
+    b, hq, sq, d = q.shape
+    K.reset_launches()
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention"] == 1
+    assert K.launches["flash_attention_wgmma"] == 1
+    want = fa_ref.attention_ref(q.reshape(b * hq, sq, d),
+                                k.reshape(-1, k.shape[2], d),
+                                v.reshape(-1, v.shape[2], d),
+                                causal=causal).reshape(got.shape)
+    return got, want
+
+
+@pytest.mark.parametrize("sq,skv", [(1000, 1000), (4097, 4097), (300, 1000)])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+def test_flash_attention_wgmma_vs_plain(cuda, monkeypatch, d, causal, group,
+                                        sq, skv):
+    """The tensor-core design at each head size it takes, both masks, GQA
+    groups 1/4/8, sequences that end inside a tile and Sq < Skv: within
+    one bf16 output rounding of the plain version element by element."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    assert fa.design(torch.bfloat16, d) == "wgmma"
+    g = torch.Generator(device=cuda).manual_seed(d + group + sq)
+    q = torch.randn((1, group, sq, d), generator=g, device=cuda)
+    k = torch.randn((1, 1, skv, d), generator=g, device=cuda)
+    v = torch.randn((1, 1, skv, d), generator=g, device=cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got, want = _flash_case(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert _excess(got, want) <= 0
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def _single_rounded_p(q, k, v, causal):
+    """Attention whose P is rounded to bf16 once before the P.V product
+    (float32 otherwise): the textbook tensor-core design."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / d ** 0.5
+    if causal:
+        qi = torch.arange(s.shape[1], device=s.device)[:, None]
+        ki = torch.arange(s.shape[2], device=s.device)[None, :]
+        s = torch.where(qi >= ki, s, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bqk,bkd->bqd", p.to(torch.bfloat16).float(), v.float())
+    return (o / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+def test_flash_attention_wgmma_where_v_cancels(cuda, monkeypatch, d, causal):
+    """Values alternate in sign over keys whose scores change smoothly, so
+    every output is a small difference of large sums.  P rounded to bf16
+    once lands outside one output rounding of the plain version there; the
+    kernel's P_hi + P_lo does not."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    s = 1000
+    g = torch.Generator().manual_seed(d)
+    q = torch.randn((1, 1, s, d), generator=g)
+    drift = torch.arange(s, dtype=torch.float32)[:, None] / s
+    k = torch.randn((1, d), generator=g) + drift * 3.0 * torch.randn((1, d),
+                                                                   generator=g)
+    sign = 1.0 - 2.0 * (torch.arange(s) % 2).float()[:, None]
+    v = sign * torch.randn((1, d), generator=g)
+    q, k, v = (t.reshape(1, 1, s, d).to(torch.bfloat16).to(cuda)
+               for t in (q, k, v))
+    got, want = _flash_case(q, k, v, causal)
+    once = _single_rounded_p(q[0], k[0], v[0], causal)[None]
+    assert _excess(once, want) > 1e-4        # the trap the design avoids
+    assert _excess(got, want) <= 0
 
 
 @pytest.mark.parametrize("cap", [8, 5])

@@ -123,9 +123,10 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         hg.build_group_dict(k, torch.ones(4, dtype=torch.bool, device="meta"),
                             16)
-    plane = torch.zeros((128, 16), dtype=torch.int32, device="meta")
+    heads = torch.zeros((128, 8), dtype=torch.int32, device="meta")
+    tails = torch.zeros((5, 2), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        hp.hash_probe64(k, plane, plane, plane)
+        hp.hash_probe64(k, heads, tails)
 
 
 def test_wrappers_refuse_mismatched_shapes():
@@ -136,10 +137,13 @@ def test_wrappers_refuse_mismatched_shapes():
     with pytest.raises(ValueError, match=r"\(n,\)"):
         hg.build_group_dict(torch.zeros(4, dtype=torch.int64),
                             torch.ones(3, dtype=torch.bool), 16)
-    plane = torch.zeros((128, 16), dtype=torch.int32)
-    with pytest.raises(ValueError, match="one \\(B, C\\) shape"):
-        hp.hash_probe64(torch.zeros(4, dtype=torch.int64), plane,
-                        plane[:, :8], plane)
+    heads = torch.zeros((128, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="\\(R, 2\\) tail"):
+        hp.hash_probe64(torch.zeros(4, dtype=torch.int64), heads,
+                        torch.zeros((5, 3), dtype=torch.int64))
+    with pytest.raises(ValueError, match="\\(B, 8\\) heads"):
+        hp.hash_probe64(torch.zeros(4, dtype=torch.int64), heads[:, :4],
+                        torch.zeros((5, 2), dtype=torch.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -218,28 +222,96 @@ def test_dict_capacity_and_empty_input():
 # hash_probe
 # ---------------------------------------------------------------------------
 
+def _planes(heads, tails, cap):
+    """The 64-bit table expanded back into the reference's (B, C) lo, hi and
+    row planes: a bucket's n keys fill its first lanes in order (two from
+    its head, the rest from its tail), empty lanes hold SENTINEL keys and
+    row -1."""
+    count, start = heads[:, 6].to(torch.int64), heads[:, 7].to(torch.int64)
+    if tails.shape[0] == 0:                 # no bucket holds a third key
+        tails = torch.zeros((1, 2), dtype=torch.int64)
+    lane = torch.arange(cap)
+    idx = (start[:, None] + lane - 2).clamp(0, tails.shape[0] - 1)
+    keys = tails[idx, 0]
+    rows = tails[idx, 1]
+    head_keys = heads.view(torch.int64)[:, :2]
+    keys[:, :2] = head_keys[:, :cap]
+    rows[:, :2] = heads[:, 4:6][:, :cap].to(torch.int64)
+    inside = lane < count[:, None]
+    lo, hi = hp_plain.split64(keys)
+    sentinel = torch.tensor(hp.SENTINEL, dtype=torch.int32)
+    return (torch.where(inside, lo, sentinel), torch.where(inside, hi, sentinel),
+            torch.where(inside, rows, -1).to(torch.int32))
+
+
+def _bucket_case(seed, m, valid_share=0.9):
+    """Negative keys, two duplicates, a packed two-column key, invalid rows."""
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(np.arange(-5000, 5000), m, replace=False).astype(np.int64)
+    keys[:3] = [keys[3], keys[3], (7 << 32) | 5]
+    vals = rng.permutation(m).astype(np.int32)
+    valid = rng.random(m) < valid_share
+    probe = np.concatenate([keys, rng.integers(-6000, 6000, 300),
+                            [np.iinfo(np.int64).max]]).astype(np.int64)
+    return keys, vals, valid, probe
+
+
 @pytest.mark.parametrize("cap", [2, 16])
 def test_bucket_table_and_probe_match_reference(cap):
-    """Tables bit-identical (cap 2 overflows), probes identical to the
-    reference's Pallas probe in interpret mode."""
-    rng = np.random.default_rng(cap)
+    """Tables equal to the reference's planes bit for bit once expanded
+    (cap 2 overflows), probes identical to the reference's Pallas probe in
+    interpret mode."""
     m, buckets = 600, 128
-    keys = rng.choice(np.arange(-5000, 5000), m, replace=False).astype(np.int64)
-    keys[:3] = [keys[3], keys[3], (7 << 32) | 5]     # duplicates, packed key
+    keys, vals, valid, probe = _bucket_case(cap, m)
     vals = np.arange(m, dtype=np.int32)
-    valid = rng.random(m) < 0.9
     got = hp.build_bucket_table64(_t(keys), _t(vals), buckets, cap=cap,
                                   valid=_t(valid))
     want = hp_ref_ops.build_bucket_table64(
         jnp.asarray(keys), jnp.asarray(vals), buckets, cap=cap,
         valid=jnp.asarray(valid))
-    for g, w in zip(got, want):
+    for g, w in zip(_planes(got[0], got[1], cap), want[:3]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    assert bool(got[3]) == (cap == 2)
-    probe = np.concatenate([keys, rng.integers(-6000, 6000, 300),
-                            [np.iinfo(np.int64).max]]).astype(np.int64)
-    row = hp.hash_probe64(_t(probe), *got[:3])
+    assert bool(got[2]) == bool(want[3]) == (cap == 2)
+    row = hp.hash_probe64(_t(probe), got[0], got[1])
     want_row = hp_ref_ops.hash_probe64(jnp.asarray(probe), *want[:3],
                                        interpret=True)
     np.testing.assert_array_equal(row.numpy(), np.asarray(want_row))
     assert hp.next_pow2(1200) == hp_ref_ops.next_pow2(1200) == 2048
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("m,buckets,cap", [(600, 128, 6), (600, 128, 3),
+                                           (2000, 256, 16), (1, 128, 16)])
+def test_bucket_table64_expands_to_reference_planes(seed, m, buckets, cap):
+    """Expanded into (B, C) planes the heads-and-tails table equals the
+    reference's
+    build bit for bit, its overflow flag is the reference's, and the plain
+    probe of the packed table equals the reference's probe of its planes,
+    overflowed builds included (about 4.7 keys a bucket at m 600)."""
+    keys, vals, valid, probe = _bucket_case(seed, max(m, 4))
+    keys, vals, valid = keys[:m], vals[:m], valid[:m]
+    heads, tails, ov = hp.build_bucket_table64(
+        _t(keys), _t(vals), buckets, cap=cap, valid=_t(valid))
+    want = hp_ref_ops.build_bucket_table64(
+        jnp.asarray(keys), jnp.asarray(vals), buckets, cap=cap,
+        valid=jnp.asarray(valid))
+    assert heads.dtype == torch.int32 and heads.shape == (buckets, 8)
+    spilled = int((heads[:, 6].to(torch.int64) - 2).clamp(min=0).sum())
+    assert tails.dtype == torch.int64 and tails.shape == (spilled, 2)
+    for g, w in zip(_planes(heads, tails, cap), want[:3]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert bool(ov) == bool(want[3])
+    got = hp_plain.hash_probe64_ref(_t(probe), heads, tails)
+    want_row = hp_ref_ops.hash_probe64(jnp.asarray(probe), *want[:3],
+                                       interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_row))
+
+
+def test_bucket_table64_of_no_valid_rows():
+    keys = torch.arange(10, dtype=torch.int64)
+    heads, tails, ov = hp.build_bucket_table64(
+        keys, torch.arange(10, dtype=torch.int32), 128,
+        valid=torch.zeros(10, dtype=torch.bool))
+    assert int(heads[:, 6].abs().sum()) == 0 and not bool(ov)
+    assert torch.equal(hp.hash_probe64(keys, heads, tails),
+                       torch.full((10,), -1, dtype=torch.int32))
