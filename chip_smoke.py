@@ -10,12 +10,16 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      per source, all at once) and report the build time and ptxas usage;
   3. every kernel on the card against its plain PyTorch version, at the main
      path's shapes for TPC-H SF 10: kernel, plain, library-call and bound
-     times, and the float sum run twice and compared byte for byte; the
-     64-bit hash probe's build, probe and both timed, beside the sorted
-     index over the same keys; the counting rank at one rank's lineitem
-     share (15 M rows, N = 4) and at 60 M, the partition histogram over SF
-     10's l_orderkey, both exact; then ``skew_stats`` of SF 10's l_partkey
-     over 8 partitions, the path that launches the histogram;
+     times.  Through ``tools/time_group_kernels.py``: the grouped sums of
+     60 M rows into (8, 5), (1, 1), (2049, 2) float64 and (2049, 2) int64,
+     the count into 8193 groups and into 1, the float64 max into 2049, and
+     the counting rank at 1.5 M, 15 M and 60 M rows for the shuffle's parts
+     5 and 9 and at parts 63 (three passes), each run twice and compared
+     byte for byte; the grouped min and max of float64 and int64, exact;
+     the 64-bit hash probe's build, probe and both timed, beside
+     the sorted index over the same keys; the partition histogram over SF
+     10's l_orderkey, exact; then ``skew_stats`` of SF 10's l_partkey over
+     8 partitions, the path that launches the histogram;
   4. the main path: all 22 TPC-H queries at SF 1 through
      ``repro_torch.core.backend.run_local`` under both join methods, checked
      against the port's NumPy reference (row counts equal, rtol 1e-7), with
@@ -30,7 +34,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      and 8 with sorted joins, N = 4 with hash joins), each equal to phase
      4's reference with exchange counts equal to the plans' static counts,
      narrow wire equal to wide byte for byte on Q9/Q10/Q13/Q18, launch
-     counters reset just before and read just after;
+     counters reset just before and read just after, every counting rank
+     of the phase run by the single-pass kernel;
   7. all 22 queries at SF 10 through ``run_distributed`` with N = 4 (sorted
      joins): partition and upload time, one warm-up and the median of 3
      timed runs per query, each query's device busy time from one profiled
@@ -210,87 +215,79 @@ def check_tensor_core_sass(K) -> None:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_segsum_sum(dev, gen, n: int, groups: int, ncols: int):
-    """One grouped float64 sum (and the int64 count) at ``(groups, ncols)``:
-    byte-identical across two runs, within 1e-9 of the plain version.
-    Returns (gids, values, kernel ms, plain ms, library ms, max abs err)."""
-    import torch
-    from repro_torch.kernels.segsum import ops, ref
-    # ids in [0, groups]: the dead slot `groups` holds ~1/(groups+1) of rows
-    gids = torch.randint(0, groups + 1, (n,), generator=gen, device=dev,
-                         dtype=torch.int32)
-    vals = torch.randn((n, ncols), generator=gen, device=dev,
-                       dtype=torch.float64) * 1e4
-    out = ops.segment_reduce(gids, vals, groups, "sum")
-    again = ops.segment_reduce(gids, vals, groups, "sum")
-    if not torch.equal(out.view(torch.int64), again.view(torch.int64)):
-        raise AssertionError("segsum float sum is not byte-identical across runs")
-    want = ref.segment_reduce_ref(gids, vals, groups, "sum")
-    err = (out - want).abs().max().item()
-    scale = want.abs().max().item()
-    if not torch.allclose(out, want, rtol=1e-9, atol=1e-9 * scale):
-        raise AssertionError(f"segsum sum: max abs err {err} (scale {scale})")
-    cnt = ops.segment_reduce(gids, None, groups, "count")
-    want_cnt = torch.bincount(gids, minlength=groups + 1)[:groups]
-    if not torch.equal(cnt, want_cnt):
-        raise AssertionError("segsum count differs from bincount")
-    idx = gids.long()
-    ms = time_ms(lambda: ops.segment_reduce(gids, vals, groups, "sum"))
-    plain = time_ms(lambda: ref.segment_reduce_ref(gids, vals, groups, "sum"))
-    lib = time_ms(lambda: torch.zeros((groups + 1, ncols), dtype=vals.dtype,
-                                      device=dev).index_add_(0, idx, vals))
-    cnt_ms = time_ms(lambda: ops.segment_reduce(gids, None, groups, "count"))
-    log(f"segsum sum   n={n} G={groups} C={ncols} f64: kernel {ms:.3f} ms, "
-        f"plain {plain:.3f} ms, index_add_ {lib:.3f} ms, max abs err {err:.3e}"
-        f" (scale {scale:.3e}), byte-identical across runs; "
-        f"int64 count kernel {cnt_ms:.3f} ms, exact")
-    return gids, vals, ms, plain, lib, err
+def check_group_kernels(dev) -> list[dict]:
+    """The grouped reductions (``SEGSUM_CASES``: n 60 M summed into (8, 5),
+    (1, 1), (2049, 2) float64 and (2049, 2) int64, counted into 8193 and 1,
+    the float64 max into 2049) and the counting rank (``RANK_CASES``: 1.5 M,
+    15 M, 60 M rows at parts 5 and 9, and 15 M at parts 63, above the
+    single-pass width) through ``tools/time_group_kernels.py``: each
+    byte-identical across two runs, float sums within 1e-9 of the plain
+    version and the rest exact, timed beside the plain version, the library
+    call and the bound.  Returns the entries of segsum_sum (2049 x 2
+    float64), segsum_count (8193), segsum_minmax and counting_rank (15 M,
+    parts 5: one rank's SF 10 share at N = 4)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from time_group_kernels import time_group_kernels
+    res = time_group_kernels(dev, plain=True)
+    picked = {}
+    libs = {"sum": "index_add_", "count": "bincount",
+            "max": "scatter_reduce_"}
+    for r in res["segsum"]:
+        what = "count" if r["op"] == "count" else f"{r['op']} {r['dtype']}"
+        lib = libs[r["op"]]
+        log(f"segsum {what} n={r['n']} G={r['groups']} C={r['cols']}: kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, {lib} "
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms, max abs "
+            f"err {r['max_abs_err']:.3e}; byte-identical across runs")
+        key = (r["op"], r["groups"], r["cols"], r["dtype"])
+        if key == ("sum", 2049, 2, "float64"):
+            picked["segsum_sum"] = r
+        elif key == ("count", 8193, 1, "int64"):
+            picked["segsum_count"] = r
+        elif r["op"] == "max":
+            picked["segsum_minmax"] = r
+    for r in res["counting_rank"]:
+        from repro_torch.kernels.radix_hist import ops as rh
+        log(f"counting_rank n={r['n']} parts={r['parts']} "
+            f"({rh.rank_design(r['parts'] + 1)}): kernel {r['ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms; "
+            f"torch.sort(stable) {r['sort_ms']:.3f} ms (the sort it "
+            f"replaces, no single call computes the rank); exact")
+        if (r["n"], r["parts"]) == (15_000_000, 5):
+            picked["counting_rank"] = r
+    sources = {"segsum_sum": ("segsum.cu", "segsum/kernel.py:43"),
+               "segsum_count": ("segsum.cu", "segsum/kernel.py:43"),
+               "segsum_minmax": ("segsum.cu", "segsum/kernel.py:87"),
+               "counting_rank": ("radix_hist.cu", "radix_hist/kernel.py:124")}
+    return [kernel_entry(
+        name, f"src/repro_torch/kernels/csrc/{src}",
+        f"src/repro/kernels/{tpu}", picked[name]["ms"],
+        picked[name]["plain_ms"], picked[name]["library_ms"],
+        picked[name].get("max_abs_err", 0.0), picked[name]["bytes"])
+        for name, (src, tpu) in sources.items()]
 
 
-def check_segsum(dev, n: int) -> list[dict]:
+def check_segsum_minmax(dev, n: int) -> None:
+    """Grouped min and max of n rows into 2049 groups, float64 and int64,
+    exact against the plain version (``check_group_kernels`` times the
+    float64 max)."""
     import torch
     from repro_torch.kernels.segsum import ops, ref
     g = torch.Generator(device=dev).manual_seed(SEED)
-    # Q1's shape (8 groups x 5 sums) and a scalar aggregate take the
-    # per-thread-partial regime; 2^11 + 1 groups x 2 sums the per-warp one
-    for groups, ncols in ((8, 5), (1, 1)):
-        check_segsum_sum(dev, g, n, groups, ncols)
-    groups, ncols = (1 << 11) + 1, 2
-    gids, vals, ms, plain, lib, err = check_segsum_sum(dev, g, n, groups,
-                                                       ncols)
-    idx = gids.long()
-    nbytes = n * 4 + n * ncols * 8 + groups * ncols * 8
-    entries = [kernel_entry(
-        "segsum_sum", "src/repro_torch/kernels/csrc/segsum.cu",
-        "src/repro/kernels/segsum/kernel.py:43", ms, plain, lib, err, nbytes)]
-
-    # min / max: order-free, must be exact
-    mm = {}
+    groups = (1 << 11) + 1
+    # ids in [0, groups]: the dead slot `groups` holds ~1/(groups+1) of rows
+    gids = torch.randint(0, groups + 1, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
     for dt in (torch.float64, torch.int64):
-        v = vals[:, 0].contiguous() if dt == torch.float64 else \
+        v = torch.randn(n, generator=g, device=dev, dtype=dt) * 1e4 \
+            if dt == torch.float64 else \
             torch.randint(-2**62, 2**62, (n,), generator=g, device=dev)
         for op in ("min", "max"):
             got = ops.segment_reduce(gids, v, groups, op)
             want = ref.segment_reduce_ref(gids, v[:, None], groups, op)[:, 0]
             if not torch.equal(got, want):
                 raise AssertionError(f"segsum {op} {dt} differs from plain")
-        k_ms = time_ms(lambda: ops.segment_reduce(gids, v, groups, "max"))
-        p_ms = time_ms(lambda: ref.segment_reduce_ref(gids, v[:, None],
-                                                      groups, "max"))
-        ident = float("-inf") if dt.is_floating_point else torch.iinfo(dt).min
-        l_ms = time_ms(lambda: torch.full((groups + 1,), ident, dtype=dt,
-                                          device=dev).scatter_reduce_(
-            0, idx, v, "amax"))
-        mm[dt] = (k_ms, p_ms, l_ms)
-        log(f"segsum max   n={n} G={groups} {dt}: kernel {k_ms:.3f} ms, "
-            f"plain {p_ms:.3f} ms, scatter_reduce {l_ms:.3f} ms; min and "
-            f"max exact")
-    k_ms, p_ms, l_ms = mm[torch.float64]
-    entries.append(kernel_entry(
-        "segsum_minmax", "src/repro_torch/kernels/csrc/segsum.cu",
-        "src/repro/kernels/segsum/kernel.py:87", k_ms, p_ms, l_ms, 0.0,
-        n * 4 + n * 8 + groups * 8))
-    return entries
+    log(f"segsum min and max n={n} G={groups} float64 and int64: exact")
 
 
 def check_hash_insert(dev, n: int) -> dict:
@@ -334,42 +331,6 @@ def check_hash_insert(dev, n: int) -> dict:
                 "src/repro/kernels/hash_group/kernel.py:100", ms, plain, lib,
                 0.0, n * (8 + 1 + 4) + cap * 12)
     return result
-
-
-def check_counting_rank(dev) -> dict:
-    """The shuffle dispatch's rank at one rank's lineitem share (N = 4) and
-    at all of SF 10's lineitem, for N = 4 and 8 (parts = N + 1 with the
-    drop bucket); exact against the plain version."""
-    import torch
-    from repro_torch.kernels.radix_hist import ops, ref
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    entry = None
-    for n in (15_000_000, 60_000_000):
-        for parts in (5, 9):
-            dest = torch.randint(0, parts, (n,), generator=g, device=dev,
-                                 dtype=torch.int32)
-            slot, counts = ops.counting_rank(dest, parts)
-            want_slot, want_counts = ref.counting_rank_ref(dest, parts)
-            if not (torch.equal(slot, want_slot) and
-                    torch.equal(counts, want_counts)):
-                raise AssertionError(f"counting_rank n={n} parts={parts} "
-                                     f"differs from plain")
-            ms = time_ms(lambda: ops.counting_rank(dest, parts))
-            plain = time_ms(lambda: ref.counting_rank_ref(dest, parts),
-                            reps=2)
-            sort_ms = time_ms(lambda: torch.sort(dest, stable=True))
-            nbytes = n * 4 + n * 4 + parts * 4     # keys in, slots out
-            log(f"counting_rank n={n} parts={parts}: kernel {ms:.3f} ms, "
-                f"plain {plain:.3f} ms, bound {bound(nbytes)[0]:.3f} ms; "
-                f"torch.sort(stable) {sort_ms:.3f} ms (the sort it "
-                f"replaces, no single call computes the rank); exact")
-            if (n, parts) == (15_000_000, 5):
-                entry = kernel_entry(
-                    "counting_rank", "src/repro_torch/kernels/csrc/radix_hist.cu",
-                    "src/repro/kernels/radix_hist/kernel.py:124", ms, plain,
-                    None, 0.0, nbytes)
-            del dest, slot, want_slot
-    return entry
 
 
 def check_radix_hist(dev, db) -> dict:
@@ -536,7 +497,8 @@ def run_main_path(dev):
     counts = dict(K.launches)
     log(f"launches on the main path (SF {SF_MAIN}, 22 queries x 2 joins): "
         f"{json.dumps(counts)}")
-    local = ("segsum_sum", "segsum_minmax", "hash_insert", "hash_probe64")
+    local = ("segsum_sum", "segsum_count", "segsum_minmax", "hash_insert",
+             "hash_probe64")
     missing = [k for k in local if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -650,6 +612,11 @@ def run_distributed_path(dev, db, refs) -> dict[str, int]:
     if missing:
         raise AssertionError(f"kernels never launched on the distributed "
                              f"path: {missing}")
+    # the shuffle's widths (N + 2) all take the single-pass rank
+    if counts["counting_rank_onepass"] != counts["counting_rank"]:
+        raise AssertionError(f"{counts['counting_rank_onepass']} of "
+                             f"{counts['counting_rank']} counting_rank calls "
+                             f"ran the single-pass kernel")
     return counts
 
 
@@ -1102,10 +1069,10 @@ def main() -> int:
     log(f"SF {SF_TIMED}: generated in {time.perf_counter() - t0:.1f} s")
 
     n_li = 60_000_000          # SF 10 lineitem rows
-    entries = check_segsum(dev, n_li)
+    entries = check_group_kernels(dev)
+    check_segsum_minmax(dev, n_li)
     entries.append(check_hash_insert(dev, 1_500_000))
     entries.append(check_hash_probe(dev, n_li, 15_000_000))
-    entries.append(check_counting_rank(dev))
     entries.append(check_radix_hist(dev, db10))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

@@ -43,9 +43,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # one launch counter per kernel; its wrapper adds one where it launches it
 # (flash_attention counts every launch of either attention design,
-# flash_attention_wgmma those of the tensor-core design alone)
-KERNELS = ("segsum_sum", "segsum_minmax", "hash_insert", "hash_probe64",
-           "counting_rank", "radix_hist", "hash_probe32", "flash_attention",
+# flash_attention_wgmma those of the tensor-core design alone; segsum_sum
+# counts every grouped sum and count, segsum_count the counts alone;
+# counting_rank counts every rank call, counting_rank_onepass those of the
+# single-pass design alone)
+KERNELS = ("segsum_sum", "segsum_count", "segsum_minmax", "hash_insert",
+           "hash_probe64", "counting_rank", "counting_rank_onepass",
+           "radix_hist", "hash_probe32", "flash_attention",
            "flash_attention_wgmma")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 # the ranks of a ThreadGroup launch from threads of one process: counting and

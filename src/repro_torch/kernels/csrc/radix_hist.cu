@@ -12,29 +12,64 @@
 //
 // Bound on an H100: bytes.  Both read int32 keys once and do a few integer
 // operations per key.  radix_hist writes only (n / blk) x parts floats, so
-// it is ~4 bytes a row; counting_rank writes a 4-byte slot per row, ~8 bytes
-// a row (it reads the keys twice, so it moves ~12).  At SF 10's 60 M rows
-// that is 0.07 and 0.14 ms at 3.35 TB/s.
+// it is ~4 bytes a row; counting_rank writes a 4-byte slot per row, 8 bytes
+// a row.  At 15 M rows (one rank's SF 10 lineitem share at N = 4) the rank
+// is 0.036 ms at 3.35 TB/s; at 1.5 M rows (SF 1) a launch costs more than
+// the bytes.
 //
-// Design.  Hopper blocks run in no order, so nothing carries across them:
-// the counting rank takes three launches instead of one sequential grid.
-//   1. hist_kernel: the histogram of each tile of `tile` rows (the same
-//      kernel body as radix_hist, unhashed, with int32 counts).  Lanes of a
-//      warp that hold one key are found with __match_any_sync, and their
-//      leader adds the group's size to a shared-memory counter: one shared
-//      atomic per distinct key per warp.
-//   2. scan_kernel: per key, an exclusive prefix sum of the tile counts in
-//      tile order (one block per key, warp-shuffle scans), in place; the
-//      key's total lands in `totals`.
-//   3. rank_kernel: each block walks its tile in chunks of kThreads rows.  A
-//      row's slot is the running count of its key before the chunk, plus the
-//      counts of its key in the chunk's earlier warps (per-warp counters in
-//      shared memory), plus its rank in its warp (__popc of the peers mask
-//      below its lane).  Every term is a count, so the result is exact and
-//      deterministic, with no atomics on the rank itself.
-// A key k falls in bin (uint32)k % width everywhere, as in the Pallas
-// binning and in the plain version, so even a key outside [0, parts) gives
-// the same slot in the kernel and the plain version.
+// Design.  Hopper blocks run in no order, so nothing carries across them.
+// The counting rank has two designs (ops.rank_design picks by width, the
+// caller's parts + 1):
+//  * single pass (width <= 32, the shuffle's N + 2 bins): decoupled
+//    look-back, the scheme of CUB's onesweep radix sort; one memset of the
+//    look-back words and one launch, keys read once (8 bytes a row).
+//     - Tiles of 4096 rows go out by an atomic ticket, not by blockIdx, so
+//       a block only ever waits on tiles that running blocks hold: no
+//       deadlock on a tile that is not resident.
+//     - Warp w of a tile takes 512 contiguous rows in 16 steps of 32, all 16
+//       loads issued before any is used (4 bytes a lane, 128 contiguous
+//       bytes a warp: a lane a row keeps the ballots in row order, and 16
+//       loads in flight a thread cover the latency of device memory).  ceil(log2(width)) ballots of the
+//       bin's bits give each lane the mask of its own bin's rows in the step
+//       (its rank: popc below it) and lane k the mask of bin k's rows, so
+//       lane k keeps bin k's running count in a register; a row's rank in
+//       its warp is that count, shuffled from lane bin, plus its rank in the
+//       step.  (bin, rank) waits in shared memory as 16 bits until the
+//       tile's prefix is known.
+//     - Warp 0 scans the warps' counts per bin and publishes the tile's
+//       count of bin k as one 64-bit word (status << 32 | count).  One warp
+//       per bin then looks back over the earlier tiles' words, stored bin by
+//       bin, 32 tiles a step (lane j reads tile p - j; the window's counts
+//       up to its nearest inclusive prefix are one warp reduction), and
+//       publishes the tile's inclusive prefix.  Count and status share the
+//       word, so relaxed loads and stores see a consistent pair, and no
+//       fence sits on the chain.
+//     - The chain of prefixes, ~32 tiles a round trip to L2, is what limits
+//       a wave of tiles, so the grid is persistent (4 blocks an SM) and each
+//       block keeps two tiles in flight: it ranks and publishes tile t, then
+//       resolves and writes the tile it took before, whose look-back has
+//       had the whole of t's loads to settle.
+//     - slot = tile prefix + earlier warps' count + rank in the warp, written
+//       once; the last tile writes the totals.
+//  * three passes (wider): per-tile histograms, a scan per bin, then ranks.
+//    1. hist_kernel: the histogram of each tile of `tile` rows (the same
+//       kernel body as radix_hist, unhashed, with int32 counts).  Lanes of a
+//       warp that hold one key are found with __match_any_sync, and their
+//       leader adds the group's size to a shared-memory counter: one shared
+//       atomic per distinct key per warp.
+//    2. scan_kernel: per key, an exclusive prefix sum of the tile counts in
+//       tile order (one block per key, warp-shuffle scans), in place; the
+//       key's total lands in `totals`.
+//    3. rank_kernel: each block walks its tile in chunks of kThreads rows.  A
+//       row's slot is the running count of its key before the chunk, plus the
+//       counts of its key in the chunk's earlier warps (per-warp counters in
+//       shared memory), plus its rank in its warp (__popc of the peers mask
+//       below its lane).
+// Every term is a count, so both designs are exact and deterministic, with no
+// atomics on the rank itself.  A key k falls in bin (uint32)k % width
+// everywhere, as in the Pallas binning and in the plain version, so even a
+// key outside [0, parts) gives the same slot in the kernel and the plain
+// version.
 #include "common.cuh"
 
 namespace {
@@ -43,6 +78,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr unsigned kNoBin = 0xFFFFFFFFu;   // a row past the end: its own group
+constexpr int kOnePassItems = 16;                        // rows a thread ranks
+constexpr int kOnePassTile = kThreads * kOnePassItems;   // 4096 rows a tile
+constexpr int kWarpRows = 32 * kOnePassItems;            // 512 rows a warp
+constexpr int kRankBits = 9;                             // rank in a warp < 512
+constexpr int kOnePassWidthMax = 32;                     // one bin a lane
+constexpr int kOnePassBlocks = 132 * 4;                  // 4 blocks an H100 SM
+constexpr unsigned long long kAggregate = 1ull << 32;    // status of a word
+constexpr unsigned long long kPrefix = 2ull << 32;
 
 __device__ __forceinline__ unsigned bin_of(int32_t key, unsigned width,
                                            bool hashed) {
@@ -149,6 +192,187 @@ rank_kernel(const int32_t* __restrict__ keys, long long n, long long tile_rows,
   }
 }
 
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+
+// Per-tile state of the single-pass rank in shared memory.
+struct RankTile {
+  int warp_count[kWarps][32];     // per warp, per bin: count, then rows before
+  int total[32];                  // per bin: rows in the tile
+  unsigned short row[kOnePassTile];  // bin << kRankBits | rank in its warp
+};
+
+// Rank the rows of tile `tile` within each warp into `st`: lane k of warp w
+// ends with the count of bin k in w's rows.
+template <int BITS>
+__device__ __forceinline__ void rank_tile(const int32_t* __restrict__ keys, long long n,
+                                          unsigned width, long long tile, RankTile& st) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const long long base = tile * kOnePassTile + static_cast<long long>(warp) * kWarpRows + lane;
+  unsigned short* rows = st.row + warp * kWarpRows + lane;
+  // lane k's bits, for the mask of bin k's rows: ones ^ flip keeps the
+  // lanes whose bit j equals k's
+  unsigned lane_flip[BITS];
+#pragma unroll
+  for (int j = 0; j < BITS; ++j) lane_flip[j] = (lane >> j) & 1u ? 0u : kFullMask;
+  const bool whole = (tile + 1) * kOnePassTile <= n;   // no row past the end
+  unsigned key[kOnePassItems];             // every load issued before any use
+#pragma unroll
+  for (int s = 0; s < kOnePassItems; ++s) {
+    const long long r = base + s * 32;
+    key[s] = r < n ? keys[r] : 0;
+  }
+  int run = 0;                 // lane k: rows of bin k in this warp's earlier steps
+#pragma unroll
+  for (int s = 0; s < kOnePassItems; ++s) {
+    const unsigned bin = key[s] < width ? key[s] : key[s] % width;
+    const unsigned valid = whole ? kFullMask : __ballot_sync(kFullMask, base + s * 32 < n);
+    unsigned peers = valid, mine = valid;
+#pragma unroll
+    for (int j = 0; j < BITS; ++j) {
+      const unsigned ones = __ballot_sync(kFullMask, (bin >> j) & 1u);
+      peers &= ones ^ ((bin >> j) & 1u ? 0u : kFullMask);
+      mine &= ones ^ lane_flip[j];
+    }
+    const int rank = __shfl_sync(kFullMask, run, static_cast<int>(bin)) +
+                     __popc(peers & below);
+    rows[s * 32] = static_cast<unsigned short>(bin << kRankBits | rank);
+    run += __popc(mine);
+  }
+  st.warp_count[warp][lane] = run;
+}
+
+// Warp 0, lane k: the warps' counts of bin k scanned in warp order, and the
+// tile's count published at once (tile 0: as its inclusive prefix).
+__device__ __forceinline__ void publish_tile(unsigned long long* flags, long long tiles,
+                                             unsigned width, long long tile, RankTile& st) {
+  const unsigned lane = threadIdx.x & 31u;
+  int total = 0;
+  for (int v = 0; v < kWarps; ++v) {
+    const int c = st.warp_count[v][lane];
+    st.warp_count[v][lane] = total;
+    total += c;
+  }
+  st.total[lane] = total;
+  if (lane < width)
+    store_relaxed(flags + lane * tiles + tile,
+                  (tile == 0 ? kPrefix : kAggregate) | static_cast<unsigned>(total));
+}
+
+// Look back, one warp per bin: lane j reads the word of tile p - j, 32
+// earlier tiles a step, until the window holds an inclusive prefix; then
+// publish the tile's own.  Count and status share a word, so relaxed loads
+// and stores suffice; every tile in the window took its ticket earlier and
+// published its count before its block waited on anything.
+__device__ __forceinline__ void resolve_tile(unsigned long long* flags, long long tiles,
+                                             int width, long long tile, const RankTile& st,
+                                             int* prefix, int32_t* totals) {
+  const unsigned lane = threadIdx.x & 31u;
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  for (int k = warp; k < width; k += kWarps) {
+    const unsigned long long* words = flags + k * tiles;
+    int before = 0;
+    if (tile > 0) {
+      long long p = tile - 1;
+      long long start = 0;
+      for (;;) {
+        const long long q = p - lane;
+        const unsigned long long f = q >= 0 ? load_relaxed(words + q) : kPrefix;
+        const unsigned long long status = f & ~0xFFFFFFFFull;
+        if (__any_sync(kFullMask, status == 0)) {
+          // trap rather than hang if an earlier tile never publishes
+          if (start == 0) {
+            start = clock64();
+          } else if (clock64() - start > 20000000000ll) {
+            __trap();
+          }
+          continue;
+        }
+        const unsigned prefixes = __ballot_sync(kFullMask, status == kPrefix);
+        const unsigned first = prefixes ? __ffs(prefixes) - 1 : 31u;
+        before += static_cast<int>(__reduce_add_sync(
+            kFullMask, lane <= first ? static_cast<unsigned>(f & 0xFFFFFFFFull) : 0u));
+        if (prefixes) break;
+        p -= 32;
+      }
+      if (lane == 0)
+        store_relaxed(flags + k * tiles + tile,
+                      kPrefix | static_cast<unsigned>(before + st.total[k]));
+    }
+    if (lane == 0) {
+      prefix[k] = before;
+      if (tile == tiles - 1) totals[k] = before + st.total[k];
+    }
+  }
+}
+
+__device__ __forceinline__ void write_tile(long long n, long long tile, const RankTile& st,
+                                           const int* prefix, int32_t* __restrict__ slot) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned warp = threadIdx.x >> 5;
+  const long long base = tile * kOnePassTile + static_cast<long long>(warp) * kWarpRows + lane;
+  const unsigned short* rows = st.row + warp * kWarpRows + lane;
+#pragma unroll
+  for (int s = 0; s < kOnePassItems; ++s) {
+    const long long r = base + s * 32;
+    if (r < n) {
+      const unsigned v = rows[s * 32];
+      const unsigned bin = v >> kRankBits;
+      slot[r] = prefix[bin] + st.warp_count[warp][bin] +
+                static_cast<int>(v & ((1u << kRankBits) - 1u));
+    }
+  }
+}
+
+// Single-pass counting rank on a persistent grid.  Each block takes tiles of
+// kOnePassTile rows from `ticket` and keeps two in flight: it ranks and
+// publishes tile t, then resolves and writes the tile it took before, whose
+// look-back has had the whole of t's loads to settle.  `flags` holds (width,
+// tiles) look-back words, bin-major, zero before the launch.
+template <int BITS>
+__global__ void __launch_bounds__(kThreads, 4)
+rank_onepass_kernel(const int32_t* __restrict__ keys, long long n, int width,
+                    long long tiles, unsigned long long* __restrict__ flags,
+                    unsigned* __restrict__ ticket, int32_t* __restrict__ totals,
+                    int32_t* __restrict__ slot) {
+  __shared__ RankTile s_tile[2];
+  __shared__ int s_prefix[32];
+  __shared__ long long s_next;
+  const unsigned w = static_cast<unsigned>(width);
+  long long pending = -1;
+  int cur = 0;
+  for (;;) {
+    if (threadIdx.x == 0) s_next = atomicAdd(ticket, 1u);
+    __syncthreads();
+    const long long t = s_next;
+    const bool have = t < tiles;
+    if (have) {
+      rank_tile<BITS>(keys, n, w, t, s_tile[cur]);
+      __syncthreads();
+      if (threadIdx.x < 32) publish_tile(flags, tiles, w, t, s_tile[cur]);
+    }
+    if (pending >= 0) {
+      resolve_tile(flags, tiles, width, pending, s_tile[cur ^ 1], s_prefix, totals);
+      __syncthreads();
+      write_tile(n, pending, s_tile[cur ^ 1], s_prefix, slot);
+    }
+    __syncthreads();
+    if (!have) break;
+    pending = t;
+    cur ^= 1;
+  }
+}
+
 }  // namespace
 
 // keys (n,) int32 -> out (ceil(n / blk), parts) float32 histograms.
@@ -164,8 +388,8 @@ REPRO_EXPORT int radix_hist(const void* keys, long long n, long long blk,
   return cudaGetLastError();
 }
 
-// keys (n,) int32 -> slot (n,) int32 and totals (width,) int32, where width
-// is the caller's parts + 1 (the reference's reserved padding bin).  The
+// Three-pass counting rank, any width: keys (n,) int32 -> slot (n,) int32
+// and totals (width,) int32, where width is the caller's parts + 1 (the reference's reserved padding bin).  The
 // caller picks the rows per tile, `tile`, and sizes `counts`, the
 // (ceil(n / tile), width) int32 scratch.  The rank pass takes
 // (kWarps + 1) * width ints of shared memory, so width <= 6456; the wrapper
@@ -195,5 +419,41 @@ REPRO_EXPORT int counting_rank(const void* keys, long long n, long long tile,
   rank_kernel<<<static_cast<unsigned>(tiles), kThreads, rank_smem, s>>>(
       static_cast<const int32_t*>(keys), n, tile, width,
       static_cast<const int32_t*>(counts), static_cast<int32_t*>(slot));
+  return cudaGetLastError();
+}
+
+// Single-pass counting rank for width <= 32: keys (n,) int32 -> slot (n,)
+// int32 and totals (width,) int32.  `flags` is scratch of
+// ceil(n / 4096) * width + 1 eight-byte words (the look-back words, bin
+// by bin, and the tile ticket), zeroed here on the stream before the one launch.
+REPRO_EXPORT int counting_rank_onepass(const void* keys, long long n, int width,
+                                       void* flags, void* totals, void* slot,
+                                       void* stream) {
+  if (width < 1 || width > kOnePassWidthMax) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles = (n + kOnePassTile - 1) / kOnePassTile;
+  if (tiles == 0) return cudaSuccess;
+  auto* words = static_cast<unsigned long long*>(flags);
+  cudaError_t err = cudaMemsetAsync(
+      words, 0, static_cast<size_t>(tiles * width + 1) * sizeof(*words), s);
+  if (err != cudaSuccess) return err;
+  // bits of a bin: the ballots a step takes
+  int bits = 1;
+  while ((1 << bits) < width) ++bits;
+  auto* ticket = reinterpret_cast<unsigned*>(words + tiles * width);
+  const auto* k = static_cast<const int32_t*>(keys);
+  auto* t = static_cast<int32_t*>(totals);
+  auto* sl = static_cast<int32_t*>(slot);
+  const unsigned grid = static_cast<unsigned>(min(tiles, static_cast<long long>(kOnePassBlocks)));
+#define REPRO_RANK(B) \
+  rank_onepass_kernel<B><<<grid, kThreads, 0, s>>>(k, n, width, tiles, words, ticket, t, sl)
+  switch (bits) {
+    case 1: REPRO_RANK(1); break;
+    case 2: REPRO_RANK(2); break;
+    case 3: REPRO_RANK(3); break;
+    case 4: REPRO_RANK(4); break;
+    default: REPRO_RANK(5); break;
+  }
+#undef REPRO_RANK
   return cudaGetLastError();
 }

@@ -8,77 +8,253 @@
 // Bound on an H100: bytes.  A call reads n int32 group ids and n*C values once
 // and writes G*C results, so at the main path's shapes (n = 60 M lineitem rows
 // at SF 10, C = 1..5 float64) it is a pass over 0.3-2.6 GB of device memory
-// at 3.35 TB/s; the arithmetic (one add or compare per value) is negligible.
+// at 3.35 TB/s (G 2049 x C 2 float64: 1.2 GB, 0.358 ms; a count reads only
+// the ids, 0.072 ms); the arithmetic (one add or compare per value) is
+// negligible.  What keeps a kernel from that bound is bytes in flight per SM
+// (about 30 KB are needed to cover the latency of device memory) and, for
+// float sums, the work of a fixed order.
 //
-// Design.
-//  * sum/count must be bitwise deterministic from run to run (later slices
-//    gate on byte-identity), so there are no float atomics.  Block b reduces a
-//    fixed row range [b*chunk, (b+1)*chunk) into a partial in a fixed order,
-//    and a second pass adds the partials of each cell in block order.  The
-//    launch geometry is a function of the shapes only (ops.sum_plan), so
-//    equal inputs give equal bits.  The same code sums integers (exact in any
-//    order) and counts (values = 1).  Two regimes, chosen from G*C alone:
-//  * small tiles (G*C <= kPrivateCells, e.g. Q1's 8 groups x 5 sums, every
-//    scalar aggregate): each thread accumulates its own rows (tid,
-//    tid + blockDim, ...) into a private slice of shared memory — no thread
-//    waits on another — and the block adds the slices in thread order.
-//  * larger tiles (Q7's 2^11 groups, Q9's 2^9): each warp owns a private
-//    copy of the tile's G*C partial in shared memory and walks its own rows
-//    32 at a time, kUnroll steps loaded ahead into registers.  Lanes that hit
-//    the same group (__match_any_sync) take turns in lane order, i.e. row
-//    order, so a cell's additions have a fixed order and no atomics are
-//    needed; with random ids a step costs one or two turns.  The block then
-//    adds its warps' copies in warp order.  The wrapper tiles columns, then
-//    groups, so the copies fit in shared memory, and gives each block at
-//    least 8*G*C rows, so zeroing and writing the partial stays small.
-//  * min/max are order-free, so they use atomics: each thread folds a run of
-//    rows of one group in a register, then atomicMin/atomicMax into a
-//    shared-memory copy of the groups (global memory when G is too large),
-//    then one global atomic per (block, touched group).  Floats are mapped to
-//    integers whose signed order is the float order, so 64-bit integer
-//    atomics serve float64.
+// Sum and count.  ops.sum_plan fixes the geometry from the shapes alone, so
+// the same shapes always reduce in the same way, whatever the card.
+//  * Integers (int32 and int64 sums, int64 counts) are exact in any order, so
+//    they use atomics (regime "atomic"): a persistent grid of blocks walks
+//    contiguous row ranges, each lane adding its row to a copy of the tile
+//    in shared memory (one copy per warp while they fit, so warps do not
+//    contend).  Then one global atomic per (block, touched cell) into the
+//    output, which the same C call zeroes on the stream.  Counts keep 32-bit counters (a block covers
+//    < 2^31 rows); int64 sums add in two native 32-bit atomics with the low
+//    word's carry (a 64-bit shared atomicAdd is a compare-and-swap loop on
+//    sm_90).  A tile too large for shared memory adds straight into the
+//    output.  No partial, no second pass.  (Aggregating lanes of one group
+//    first with __match_any_sync costs more than it saves when a warp's ids
+//    are mostly distinct: its cost grows with the distinct values.)
+//  * Float sums must give the same bits on every call (later slices gate on
+//    byte-identity), so there are no float atomics: the order of each cell's
+//    additions is a function of the row indices, i.e. of (n, G, C, dtype).
+//    A persistent grid of P blocks (P = 132 x the blocks an SM holds, a
+//    constant, never read from the device) covers fixed contiguous row
+//    ranges [b*chunk, (b+1)*chunk); each block reduces its range into one
+//    partial, and segsum_combine adds the P partials of each cell in a fixed
+//    two-level tree (kCombineRuns runs in block order, then the runs in
+//    order) with one thread per (cell, run).  With P ~ 132 the partial at
+//    G 2049 x C 2 float64 is 4.3 MB, not the 60 MB of one block per 32 K rows.
+//     - regime "thread" (G*C <= 48: Q1's 8 groups x 5 sums, every scalar
+//       aggregate): rows r0 + t + k*256 go to thread t's private slice of
+//       shared memory, in row order; the block adds the slices in thread
+//       order.
+//     - regime "warp" (larger tiles): each warp owns a private copy of the
+//       tile in shared memory; warp w takes rows r0 + (k*W + w)*32*U + u*32
+//       + lane.  Lanes whose groups share one of the warp's 1024 claim words
+//       take turns: each round the lowest pending lane of a word (atomicMin
+//       on the lane) adds its row, so a cell's rows are added in lane order,
+//       i.e. row order, and distinct words all add in the first round.  C is
+//       a template parameter, and each lane loads the next U steps into
+//       registers while it adds the current U (U = 16 at C <= 2, 8 above),
+//       so a warp has ~10 KB in flight.  The block adds its warps' copies in
+//       warp order.  Columns, then groups, are tiled so that the copies fit
+//       in shared memory.
+//    Where a row's values are loaded from never decides where they are added:
+//    a row's slice, copy and turn come from its index alone, so values at any
+//    storage offset reduce to the same bits.
 //  * Ids outside [0, G) (the dead slot G, padding, garbage) are skipped: the
 //    dead-slot convention of repro/kernels/segsum/ops.py.
+//
+// Min and max are order-free, so they use atomics: each thread folds a run of
+// rows of one group in a register, then atomicMin/atomicMax into a
+// shared-memory copy of the groups (global memory when G is too large), then
+// one global atomic per (block, touched group).  Floats are mapped to
+// integers whose signed order is the float order, so 64-bit integer atomics
+// serve float64.
 #include "common.cuh"
 
 #include <climits>
 
 namespace {
 
-constexpr int kPrivThreads = 128;  // threads of a small-tile block
-constexpr int kPrivateCells = 48;  // per-thread partials up to G*C cells
-constexpr int kWarpThreadsMax = 256;
-constexpr int kMaxCols = 4;        // columns per launch in the warp regime
-constexpr int kUnroll = 4;         // steps of 32 rows a lane loads ahead
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kAtomicThreads = 512;  // threads of an integer block (2 an SM)
+constexpr int kPrivThreads = 256;    // threads of a "thread"-regime block
+constexpr int kPrivCols = 8;         // columns of a "thread"-regime tile
+constexpr int kWarpsMax = 8;         // warps (copies) of a "warp"-regime block
+constexpr int kWarpCols = 4;         // columns of a "warp"-regime tile
+constexpr int kCombineRuns = 8;      // first level of the combine tree
 constexpr int kMinMaxThreads = 256;
 constexpr size_t kMinMaxSmemMax = 96 * 1024;
 
-// small tiles: private per-thread partials (row stride = blockDim), then a
-// thread-ordered combine.  `stride` (odd, >= cells) spreads the threads'
-// slices over the shared-memory banks.
-template <typename T, bool COUNT>
+enum Regime : int { kAtomic = 0, kThread = 1, kWarp = 2 };
+
+// -- integers: atomics -------------------------------------------------------
+
+// shared-memory accumulator: 32 bits for counts and int32 sums (which wrap
+// modulo 2^32, as the int32 output does), 64 bits for int64 sums
+template <typename T, bool COUNT> struct AtomicAcc { using type = unsigned long long; };
+template <> struct AtomicAcc<int32_t, false> { using type = unsigned; };
+template <typename T> struct AtomicAcc<T, true> { using type = unsigned; };
+
+// steps of 32 rows a lane loads before it adds them
+template <bool COUNT, int CT> struct AtomicSteps {
+  static constexpr int value = COUNT ? 16 : (CT == 1 ? 8 : CT == 2 ? 4 : 2);
+};
+
+// Shared-memory adds.  A 64-bit atomicAdd on shared memory compiles to a
+// compare-and-swap loop on sm_90, so it is two native 32-bit adds: the low
+// word's carry out (from the value it held) goes into the high word, and
+// the carries of all adders sum to the true carry.
+__device__ __forceinline__ void shared_add(unsigned* p, unsigned v) { atomicAdd(p, v); }
+__device__ __forceinline__ void shared_add(unsigned long long* p, unsigned long long v) {
+  unsigned* w = reinterpret_cast<unsigned*>(p);
+  const unsigned lo = static_cast<unsigned>(v);
+  const unsigned old = atomicAdd(w, lo);
+  atomicAdd(w + 1, static_cast<unsigned>(v >> 32) + (old + lo < old ? 1u : 0u));
+}
+
+__device__ __forceinline__ void global_add(long long* p, unsigned long long v) {
+  atomicAdd(reinterpret_cast<unsigned long long*>(p), v);
+}
+__device__ __forceinline__ void global_add(int32_t* p, unsigned v) {
+  atomicAdd(reinterpret_cast<unsigned*>(p), v);
+}
+
+// Columns [c0, c0 + CT) of the (n, ncols) values (or the row count), added
+// into out (groups, ncols), which the caller zeroed.  `copies` copies of the
+// (groups, CT) tile live in shared memory; 0 adds straight into `out`.
+template <typename T, bool COUNT, int CT>
+__global__ void __launch_bounds__(kAtomicThreads, 2)
+segsum_atomic(const int32_t* __restrict__ gids, const T* __restrict__ vals,
+              long long n, int ncols, int c0, int groups, long long chunk,
+              int copies, T* __restrict__ out) {
+  using Acc = typename AtomicAcc<T, COUNT>::type;
+  constexpr int U = AtomicSteps<COUNT, CT>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Acc* sacc = reinterpret_cast<Acc*>(smem_raw);
+  const int cells = groups * CT;
+  const int nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < copies * cells; i += blockDim.x) sacc[i] = Acc(0);
+  __syncthreads();
+  Acc* mine = copies > 0 ? sacc + static_cast<size_t>(warp % copies) * cells : nullptr;
+  auto add = [&](int cell, Acc x) {
+    if (mine != nullptr) {
+      shared_add(mine + cell, x);
+    } else {
+      global_add(out + static_cast<size_t>(cell / CT) * ncols + c0 + cell % CT, x);
+    }
+  };
+  const long long r0 = static_cast<long long>(blockIdx.x) * chunk;
+  const long long r1 = min(n, r0 + chunk);
+  const long long step = static_cast<long long>(nwarps) * 32 * U;
+  for (long long base = r0 + static_cast<long long>(warp) * 32 * U; base < r1;
+       base += step) {
+    int g[U];
+    Acc v[U][CT];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long i = base + u * 32 + lane;
+      const bool in = i < r1;
+      g[u] = in ? gids[i] : -1;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        if constexpr (COUNT) {
+          v[u][c] = Acc(1);
+        } else {
+          v[u][c] = in ? static_cast<Acc>(vals[i * ncols + c0 + c]) : Acc(0);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (g[u] >= 0 && g[u] < groups) {
+#pragma unroll
+        for (int c = 0; c < CT; ++c) add(g[u] * CT + c, v[u][c]);
+      }
+    }
+  }
+  if (copies > 0) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      Acc s = Acc(0);
+      for (int k = 0; k < copies; ++k) s += sacc[static_cast<size_t>(k) * cells + i];
+      if (s != Acc(0))
+        global_add(out + static_cast<size_t>(i / CT) * ncols + c0 + i % CT, s);
+    }
+  }
+}
+
+template <typename T, bool COUNT, int CT>
+int launch_atomic(const int32_t* gids, const T* vals, long long n, int ncols,
+                  int c0, int groups, int nblocks, long long chunk, int copies,
+                  int smem, T* out, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      segsum_atomic<T, COUNT, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  segsum_atomic<T, COUNT, CT><<<nblocks, kAtomicThreads, smem, stream>>>(
+      gids, vals, n, ncols, c0, groups, chunk, copies, out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int sum_atomic(const int32_t* gids, const T* vals, long long n, int ncols,
+               int groups, int nblocks, long long chunk, int ct, int copies,
+               int smem, T* out, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(
+      out, 0, static_cast<size_t>(groups) * ncols * sizeof(T), stream);
+  if (err != cudaSuccess) return err;
+  for (int c0 = 0; c0 < ncols; c0 += ct) {
+    const int ctt = min(ct, ncols - c0);
+    int rc;
+    switch (ctt) {
+      case 1: rc = launch_atomic<T, false, 1>(gids, vals, n, ncols, c0, groups, nblocks, chunk, copies, smem, out, stream); break;
+      case 2: rc = launch_atomic<T, false, 2>(gids, vals, n, ncols, c0, groups, nblocks, chunk, copies, smem, out, stream); break;
+      case 3: rc = launch_atomic<T, false, 3>(gids, vals, n, ncols, c0, groups, nblocks, chunk, copies, smem, out, stream); break;
+      case 4: rc = launch_atomic<T, false, 4>(gids, vals, n, ncols, c0, groups, nblocks, chunk, copies, smem, out, stream); break;
+      default: return cudaErrorInvalidValue;
+    }
+    if (rc != cudaSuccess) return rc;
+  }
+  return cudaSuccess;
+}
+
+// -- floats: fixed order -----------------------------------------------------
+
+// regime "thread": rows r0 + tid + k*kPrivThreads of block b go, in row
+// order, to thread tid's slice of shared memory (`stride`, odd and >= the
+// tile's cells, spreads the slices over the banks); the block then adds the
+// slices in thread order into its partial.
+template <typename T, int CT>
 __global__ void __launch_bounds__(kPrivThreads)
-segsum_private(const int32_t* __restrict__ gids, const T* __restrict__ vals,
-               long long n, int ncols, int c0, int ct, int g0, int gt,
-               int groups, long long chunk, int stride, T* __restrict__ partial) {
+segsum_thread(const int32_t* __restrict__ gids, const T* __restrict__ vals,
+              long long n, int ncols, int c0, int groups, long long chunk,
+              int stride, T* __restrict__ partial) {
+  constexpr int U = 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* pacc = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x;
-  const int cells = gt * ct;
+  const int cells = groups * CT;
   T* mine = pacc + tid * stride;
   for (int i = 0; i < cells; ++i) mine[i] = T(0);
   const long long r0 = static_cast<long long>(blockIdx.x) * chunk;
   const long long r1 = min(n, r0 + chunk);
-#pragma unroll 4
-  for (long long i = r0 + tid; i < r1; i += kPrivThreads) {
-    const int g = gids[i];
-    if (g < g0 || g >= g0 + gt || g >= groups) continue;
-    const int cell = (g - g0) * ct;
-    if (COUNT) {
-      mine[cell] += T(1);
-    } else {
-      for (int c = 0; c < ct; ++c) mine[cell + c] += vals[i * ncols + c0 + c];
+  for (long long base = r0 + tid; base < r1;
+       base += static_cast<long long>(kPrivThreads) * U) {
+    int cell[U];
+    T v[U][CT];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long i = base + static_cast<long long>(u) * kPrivThreads;
+      const bool in = i < r1;
+      const int g = in ? gids[i] : -1;
+      cell[u] = (g >= 0 && g < groups) ? g * CT : -1;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) v[u][c] = in ? vals[i * ncols + c0 + c] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (cell[u] >= 0) {
+#pragma unroll
+        for (int c = 0; c < CT; ++c) mine[cell[u] + c] += v[u][c];
+      }
     }
   }
   __syncthreads();
@@ -90,60 +266,96 @@ segsum_private(const int32_t* __restrict__ gids, const T* __restrict__ vals,
   }
 }
 
-// larger tiles: a private partial per warp; lanes of one group take turns
-template <typename T, bool COUNT>
-__global__ void __launch_bounds__(kWarpThreadsMax)
+constexpr int kTagSlots = 1024;          // claim words of a warp
+constexpr unsigned kNoLane = 0xFFFFFFFFu;
+
+// The rows of one step go to the warp's copy `mine`, one row a lane (cell
+// < 0: none).  Lanes whose groups share a claim word (`tag`, indexed by the
+// group id modulo kTagSlots, kNoLane between steps) take turns: in each
+// round the lowest pending lane of each word (atomicMin) adds its row, so
+// the rows of one cell are added in lane order, i.e. row order, and lanes
+// of distinct words all add in the first round.
+template <typename T, int CT>
+__device__ __forceinline__ void warp_add(T* mine, unsigned* tag, int cell,
+                                         const T (&v)[CT], int lane) {
+  bool pending = cell >= 0;
+  unsigned* word = tag + ((cell / CT) & (kTagSlots - 1));
+  while (__any_sync(kFullMask, pending)) {
+    if (pending) atomicMin(word, static_cast<unsigned>(lane));
+    __syncwarp();
+    const bool won = pending && *word == static_cast<unsigned>(lane);
+    __syncwarp();
+    if (won) {
+      *word = kNoLane;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) mine[cell + c] += v[c];
+      pending = false;
+    }
+    __syncwarp();
+  }
+}
+
+// bytes of a block's copies, rounded up to 16; its claim words follow them
+__device__ inline size_t copies_bytes(int warps, int cells, size_t item) {
+  return (static_cast<size_t>(warps) * cells * item + 15) / 16 * 16;
+}
+
+template <int CT> struct WarpSteps { static constexpr int value = CT <= 2 ? 16 : 8; };
+
+// cell of group id g in the tile [g0, g0 + gt) x CT columns, or -1
+__device__ __forceinline__ int tile_cell(int g, int g0, int gt, int groups, int ct) {
+  return (g >= g0 && g < g0 + gt && g < groups) ? (g - g0) * ct : -1;
+}
+
+// regime "warp": a copy of the tile per warp; each lane keeps the next U
+// steps' rows in flight in registers while it adds the current U.
+template <typename T, int CT>
+__global__ void __launch_bounds__(kWarpsMax * 32)
 segsum_warp(const int32_t* __restrict__ gids, const T* __restrict__ vals,
-            long long n, int ncols, int c0, int ct, int g0, int gt,
-            int groups, long long chunk, T* __restrict__ partial) {
+            long long n, int ncols, int c0, int g0, int gt, int groups,
+            long long chunk, T* __restrict__ partial) {
+  constexpr int U = WarpSteps<CT>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* acc = reinterpret_cast<T*>(smem_raw);              // nwarps * cells
-  const int cells = gt * ct;
+  T* acc = reinterpret_cast<T*>(smem_raw);               // nwarps * cells
+  const int cells = gt * CT;
   const int nwarps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  unsigned* tags = reinterpret_cast<unsigned*>(
+      smem_raw + copies_bytes(nwarps, cells, sizeof(T)));
   for (int i = threadIdx.x; i < nwarps * cells; i += blockDim.x) acc[i] = T(0);
+  for (int i = threadIdx.x; i < nwarps * kTagSlots; i += blockDim.x) tags[i] = kNoLane;
   __syncthreads();
   T* mine = acc + static_cast<size_t>(warp) * cells;
-  const unsigned below = (1u << lane) - 1u;
+  unsigned* tag = tags + warp * kTagSlots;
   const long long r0 = static_cast<long long>(blockIdx.x) * chunk;
   const long long r1 = min(n, r0 + chunk);
-  const long long step = static_cast<long long>(nwarps) * 32 * kUnroll;
-  for (long long base = r0 + static_cast<long long>(warp) * 32 * kUnroll;
-       base < r1; base += step) {
-    int cell[kUnroll];
-    T v[kUnroll][kMaxCols];
+  const long long step = static_cast<long long>(nwarps) * 32 * U;
+  auto load = [&](long long b, int (&cl)[U], T (&vv)[U][CT]) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long i = base + u * 32 + lane;
-      const int g = i < r1 ? gids[i] : -1;
-      const bool in = g >= g0 && g < g0 + gt && g < groups;
-      cell[u] = in ? (g - g0) * ct : -1;
+    for (int u = 0; u < U; ++u) {
+      const long long i = b + u * 32 + lane;
+      const bool in = i < r1;
+      cl[u] = tile_cell(in ? gids[i] : -1, g0, gt, groups, CT);
 #pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) {
-        if (COUNT) {
-          v[u][c] = T(1);
-        } else {
-          v[u][c] = (in && c < ct) ? vals[i * ncols + c0 + c] : T(0);
-        }
-      }
+      for (int c = 0; c < CT; ++c) vv[u][c] = in ? vals[i * ncols + c0 + c] : T(0);
     }
+  };
+  long long base = r0 + static_cast<long long>(warp) * 32 * U;
+  int cell[U];
+  T v[U][CT];
+  load(base, cell, v);
+  for (; base < r1; base += step) {
+    int next_cell[U];
+    T next_v[U][CT];
+    load(base + step, next_cell, next_v);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      // rows outside the tile get a key of their own, so they wait on no one
-      const unsigned peers =
-          __match_any_sync(kFullMask, cell[u] >= 0 ? cell[u] : -1 - lane);
-      const int rank = __popc(peers & below);
-      const int turns = static_cast<int>(
-          __reduce_max_sync(kFullMask, static_cast<unsigned>(__popc(peers))));
-      for (int r = 0; r < turns; ++r) {
-        if (rank == r && cell[u] >= 0) {
+    for (int u = 0; u < U; ++u) warp_add<T, CT>(mine, tag, cell[u], v[u], lane);
 #pragma unroll
-          for (int c = 0; c < kMaxCols; ++c)
-            if (c < ct) mine[cell[u] + c] += v[u][c];
-        }
-        __syncwarp();
-      }
+    for (int u = 0; u < U; ++u) {
+      cell[u] = next_cell[u];
+#pragma unroll
+      for (int c = 0; c < CT; ++c) v[u][c] = next_v[u][c];
     }
   }
   __syncthreads();
@@ -155,56 +367,92 @@ segsum_warp(const int32_t* __restrict__ gids, const T* __restrict__ vals,
   }
 }
 
-// out[g0+g, c0+c] = sum over blocks b (in block order) of partial[b, g, c]
+// out[g0 + g, c0 + c] for the tile's cells: the P block partials of a cell
+// in a fixed tree, kCombineRuns runs of consecutive blocks (one thread each,
+// block order), then the runs in order.
 template <typename T>
-__global__ void segsum_combine(const T* __restrict__ partial, int nblocks,
-                               int gt, int ct, int g0, int c0, int ncols,
-                               T* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= gt * ct) return;
+__global__ void __launch_bounds__(32 * kCombineRuns)
+segsum_combine(const T* __restrict__ partial, int nblocks, int cells, int ct,
+               int g0, int c0, int ncols, T* __restrict__ out) {
+  __shared__ T run_sum[kCombineRuns][32];
+  const int x = threadIdx.x & 31;
+  const int y = threadIdx.x >> 5;
+  const int cell = blockIdx.x * 32 + x;
+  const int len = (nblocks + kCombineRuns - 1) / kCombineRuns;
   T s = T(0);
-  for (int b = 0; b < nblocks; ++b) s += partial[static_cast<size_t>(b) * gt * ct + i];
-  const int g = i / ct;
-  const int c = i - g * ct;
-  out[static_cast<size_t>(g0 + g) * ncols + c0 + c] = s;
+  if (cell < cells) {
+    const int b1 = min(nblocks, (y + 1) * len);
+    for (int b = y * len; b < b1; ++b) s += partial[static_cast<size_t>(b) * cells + cell];
+  }
+  run_sum[y][x] = s;
+  __syncthreads();
+  if (y == 0 && cell < cells) {
+    T t = run_sum[0][x];
+    for (int r = 1; r < kCombineRuns; ++r) t += run_sum[r][x];
+    const int g = cell / ct;
+    out[static_cast<size_t>(g0 + g) * ncols + c0 + cell - g * ct] = t;
+  }
 }
 
-template <typename T, bool COUNT>
-int launch_sum(const int32_t* gids, const T* vals, long long n, int ncols,
-               int groups, int nblocks, long long chunk, int gt, int ct,
-               int warps, T* partial, T* out, cudaStream_t stream) {
-  if (warps < 1 || warps * 32 > kWarpThreadsMax) return cudaErrorInvalidValue;
+template <typename T, int CT>
+int launch_float_tile(int regime, const int32_t* gids, const T* vals, long long n,
+                      int ncols, int c0, int g0, int gt, int groups, int nblocks,
+                      long long chunk, int warps, int smem, T* partial, T* out,
+                      cudaStream_t stream) {
+  const int cells = gt * CT;
+  cudaError_t err;
+  if (regime == kThread) {
+    if (g0 != 0 || gt != groups) return cudaErrorInvalidValue;
+    const int stride = cells | 1;
+    err = cudaFuncSetAttribute(segsum_thread<T, CT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    segsum_thread<T, CT><<<nblocks, kPrivThreads, smem, stream>>>(
+        gids, vals, n, ncols, c0, groups, chunk, stride, partial);
+  } else if constexpr (CT <= kWarpCols) {
+    if (regime != kWarp || warps < 1 || warps > kWarpsMax) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(segsum_warp<T, CT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    segsum_warp<T, CT><<<nblocks, warps * 32, smem, stream>>>(
+        gids, vals, n, ncols, c0, g0, gt, groups, chunk, partial);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  segsum_combine<T><<<(cells + 31) / 32, 32 * kCombineRuns, 0, stream>>>(
+      partial, nblocks, cells, CT, g0, c0, ncols, out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int sum_float(int regime, const int32_t* gids, const T* vals, long long n,
+              int ncols, int groups, int nblocks, long long chunk, int gt,
+              int ct, int warps, int smem, T* partial, T* out,
+              cudaStream_t stream) {
+  if (ct < 1 || ct > kPrivCols || gt < 1) return cudaErrorInvalidValue;
   for (int g0 = 0; g0 < groups; g0 += gt) {
     const int gtt = min(gt, groups - g0);
     for (int c0 = 0; c0 < ncols; c0 += ct) {
       const int ctt = min(ct, ncols - c0);
-      const int cells = gtt * ctt;
-      cudaError_t err;
-      if (cells <= kPrivateCells) {
-        const int stride = cells | 1;
-        const size_t smem = static_cast<size_t>(kPrivThreads) * stride * sizeof(T);
-        err = cudaFuncSetAttribute(segsum_private<T, COUNT>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return err;
-        segsum_private<T, COUNT><<<nblocks, kPrivThreads, smem, stream>>>(
-            gids, vals, n, ncols, c0, ctt, g0, gtt, groups, chunk, stride, partial);
-      } else {
-        if (ctt > kMaxCols) return cudaErrorInvalidValue;
-        const size_t smem = static_cast<size_t>(warps) * cells * sizeof(T);
-        err = cudaFuncSetAttribute(segsum_warp<T, COUNT>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return err;
-        segsum_warp<T, COUNT><<<nblocks, warps * 32, smem, stream>>>(
-            gids, vals, n, ncols, c0, ctt, g0, gtt, groups, chunk, partial);
+      int rc;
+#define REPRO_TILE(K)                                                            \
+  launch_float_tile<T, K>(regime, gids, vals, n, ncols, c0, g0, gtt, groups,      \
+                          nblocks, chunk, warps, smem, partial, out, stream)
+      switch (ctt) {
+        case 1: rc = REPRO_TILE(1); break;
+        case 2: rc = REPRO_TILE(2); break;
+        case 3: rc = REPRO_TILE(3); break;
+        case 4: rc = REPRO_TILE(4); break;
+        case 5: rc = REPRO_TILE(5); break;
+        case 6: rc = REPRO_TILE(6); break;
+        case 7: rc = REPRO_TILE(7); break;
+        case 8: rc = REPRO_TILE(8); break;
+        default: return cudaErrorInvalidValue;
       }
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-      segsum_combine<T><<<(cells + 255) / 256, 256, 0, stream>>>(
-          partial, nblocks, gtt, ctt, g0, c0, ncols, out);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
+#undef REPRO_TILE
+      if (rc != cudaSuccess) return rc;
     }
   }
   return cudaSuccess;
@@ -340,45 +588,62 @@ int launch_minmax(const int32_t* gids, const T* vals, long long n, int ncols,
   return cudaSuccess;
 }
 
+
 }  // namespace
 
 // Grouped sum (count_mode = 0) or row count (count_mode = 1, int64, vals
-// unused) of (n, ncols) row-major values into (groups, ncols).  `partial` is
-// scratch of nblocks * gt * ct elements; block b covers rows
-// [b*chunk, (b+1)*chunk); a warp-regime block has `warps` warps.
-REPRO_EXPORT int segsum_sum(int dtype, int count_mode, const void* gids,
-                            const void* vals, long long n, int ncols,
-                            int groups, int nblocks, long long chunk, int gt,
-                            int ct, int warps, void* partial, void* out,
-                            void* stream) {
+// unused) of (n, ncols) row-major values into (groups, ncols), in the
+// geometry of ops.sum_plan: `regime` (kAtomic for integers and counts; for
+// floats kThread or kWarp), nblocks blocks of `chunk` rows each, tiles
+// of gt groups x ct columns, `warps` (the per-warp copies of a float
+// block, or the shared-memory copies of an integer block, 0 for none) and
+// `smem` bytes of dynamic shared memory a block (its copies, and in kWarp
+// the claim words after them).
+// `partial` is float scratch of nblocks * gt * ct elements, unused by
+// kAtomic, which zeroes `out` on the stream itself.
+REPRO_EXPORT int segsum_sum(int dtype, int count_mode, int regime,
+                            const void* gids, const void* vals, long long n,
+                            int ncols, int groups, int nblocks, long long chunk,
+                            int gt, int ct, int warps, int smem, void* partial,
+                            void* out, void* stream) {
   const auto* g = static_cast<const int32_t*>(gids);
   auto st = static_cast<cudaStream_t>(stream);
-  if (count_mode) {
-    return launch_sum<long long, true>(g, nullptr, n, 1, groups, nblocks, chunk,
-                                       gt, 1, warps, static_cast<long long*>(partial),
-                                       static_cast<long long*>(out), st);
+  if (nblocks < 1 || chunk < 1 || smem < 0) return cudaErrorInvalidValue;
+  if (regime == kAtomic) {
+    if (warps < 0 || warps > kAtomicThreads / 32) return cudaErrorInvalidValue;
+    if (count_mode) {
+      if (chunk >= (1ll << 31)) return cudaErrorInvalidValue;  // 32-bit counters
+      cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(groups) * 8, st);
+      if (err != cudaSuccess) return err;
+      return launch_atomic<long long, true, 1>(g, nullptr, n, 1, 0, groups, nblocks,
+                                               chunk, warps, smem,
+                                               static_cast<long long*>(out), st);
+    }
+    switch (dtype) {
+      case kInt32:
+        return sum_atomic<int32_t>(g, static_cast<const int32_t*>(vals), n, ncols,
+                                   groups, nblocks, chunk, ct, warps, smem,
+                                   static_cast<int32_t*>(out), st);
+      case kInt64:
+        return sum_atomic<long long>(g, static_cast<const long long*>(vals), n,
+                                     ncols, groups, nblocks, chunk, ct, warps,
+                                     smem, static_cast<long long*>(out), st);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
+  if (count_mode) return cudaErrorInvalidValue;
   switch (dtype) {
-    case kInt32:
-      return launch_sum<int32_t, false>(g, static_cast<const int32_t*>(vals), n, ncols,
-                                        groups, nblocks, chunk, gt, ct, warps,
-                                        static_cast<int32_t*>(partial),
-                                        static_cast<int32_t*>(out), st);
-    case kInt64:
-      return launch_sum<long long, false>(g, static_cast<const long long*>(vals), n,
-                                          ncols, groups, nblocks, chunk, gt, ct, warps,
-                                          static_cast<long long*>(partial),
-                                          static_cast<long long*>(out), st);
     case kFloat32:
-      return launch_sum<float, false>(g, static_cast<const float*>(vals), n, ncols,
-                                      groups, nblocks, chunk, gt, ct, warps,
-                                      static_cast<float*>(partial),
-                                      static_cast<float*>(out), st);
+      return sum_float<float>(regime, g, static_cast<const float*>(vals), n, ncols,
+                              groups, nblocks, chunk, gt, ct, warps, smem,
+                              static_cast<float*>(partial),
+                              static_cast<float*>(out), st);
     case kFloat64:
-      return launch_sum<double, false>(g, static_cast<const double*>(vals), n, ncols,
-                                       groups, nblocks, chunk, gt, ct, warps,
-                                       static_cast<double*>(partial),
-                                       static_cast<double*>(out), st);
+      return sum_float<double>(regime, g, static_cast<const double*>(vals), n, ncols,
+                               groups, nblocks, chunk, gt, ct, warps, smem,
+                               static_cast<double*>(partial),
+                               static_cast<double*>(out), st);
     default:
       return cudaErrorInvalidValue;
   }

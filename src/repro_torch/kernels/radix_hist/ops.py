@@ -20,22 +20,47 @@ import torch
 from repro_torch import kernels as K
 from .ref import counting_rank_ref, radix_hist_plain
 
-__all__ = ["radix_hist", "counting_rank", "skew_stats",
-           "RADIX_HIST_PARTS_MAX", "COUNTING_RANK_PARTS_MAX"]
+__all__ = ["radix_hist", "counting_rank", "skew_stats", "rank_design",
+           "rank_scratch", "RADIX_HIST_PARTS_MAX", "COUNTING_RANK_PARTS_MAX",
+           "ONEPASS_WIDTH_MAX"]
 
 _c = ctypes.c_void_p
 _ll = ctypes.c_longlong
 _i = ctypes.c_int
 _SIGNATURES = {"radix_hist": [_c, _ll, _ll, _i, _i, _c, _c],
-               "counting_rank": [_c, _ll, _ll, _i, _c, _c, _c, _c]}
+               "counting_rank": [_c, _ll, _ll, _i, _c, _c, _c, _c],
+               "counting_rank_onepass": [_c, _ll, _i, _c, _c, _c, _c]}
 
 # shared memory of csrc/radix_hist.cu: one int per bin in the histogram
 # (48 KB), (8 warps + 1) ints per bin in the rank pass
 RADIX_HIST_PARTS_MAX = 12288
 COUNTING_RANK_PARTS_MAX = 4096
-# rows per counting-rank tile: the kernel takes it as an argument, and the
-# (tiles, width) scratch is sized from it here
+# rows per tile of the three-pass rank: the kernel takes it as an argument,
+# and the (tiles, width) scratch is sized from it here
 _RANK_TILE = 4096
+# the single-pass rank: one lane per bin, so widths up to 32 (the shuffle's
+# N + 2 for N <= 30); tiles of 4096 rows (csrc kOnePassTile)
+ONEPASS_WIDTH_MAX = 32
+_ONEPASS_TILE = 4096
+
+
+def rank_design(width: int) -> str:
+    """The counting-rank kernel of ``width`` bins (parts + 1):
+    ``"single_pass"`` (decoupled look-back, one launch) up to
+    ``ONEPASS_WIDTH_MAX``, ``"three_pass"`` above."""
+    if width < 1:
+        raise ValueError(f"counting_rank: width must be >= 1, got {width}")
+    return "single_pass" if width <= ONEPASS_WIDTH_MAX else "three_pass"
+
+
+def rank_scratch(n: int, width: int) -> tuple[int, torch.dtype]:
+    """(elements, dtype) of the scratch a counting rank of ``n`` keys into
+    ``width`` bins passes its kernel: for the single pass the look-back words
+    of each tile and bin plus the tile ticket (int64, zeroed by the kernel's
+    own call), for three passes the (tiles, width) int32 tile counts."""
+    if rank_design(width) == "single_pass":
+        return -(-n // _ONEPASS_TILE) * width + 1, torch.int64
+    return -(-n // _RANK_TILE) * width, torch.int32
 
 
 def _keys32(keys: torch.Tensor, what: str) -> torch.Tensor:
@@ -91,17 +116,26 @@ def counting_rank(keys: torch.Tensor, parts: int
     n = k.shape[0]
     width = parts + 1                  # the reference's reserved padding bin
     slot = torch.empty(n, dtype=torch.int32, device=k.device)
-    totals = torch.zeros(width, dtype=torch.int32, device=k.device)
     if n == 0:
-        return slot, totals[:parts]
-    tiles = (n + _RANK_TILE - 1) // _RANK_TILE
-    scratch = torch.empty((tiles, width), dtype=torch.int32, device=k.device)
+        return slot, torch.zeros(parts, dtype=torch.int32, device=k.device)
+    totals = torch.empty(width, dtype=torch.int32, device=k.device)
+    size, dtype = rank_scratch(n, width)
+    scratch = torch.empty(size, dtype=dtype, device=k.device)
     lib = K.load("radix_hist", _SIGNATURES)
+    single = rank_design(width) == "single_pass"
     with torch.cuda.device(k.device):
-        rc = lib.counting_rank(K.ptr(k), n, _RANK_TILE, width, K.ptr(scratch),
-                               K.ptr(totals), K.ptr(slot), K.stream_of(k))
+        if single:
+            rc = lib.counting_rank_onepass(K.ptr(k), n, width, K.ptr(scratch),
+                                           K.ptr(totals), K.ptr(slot),
+                                           K.stream_of(k))
+        else:
+            rc = lib.counting_rank(K.ptr(k), n, _RANK_TILE, width,
+                                   K.ptr(scratch), K.ptr(totals), K.ptr(slot),
+                                   K.stream_of(k))
     K.check(lib, rc, "counting_rank")
     K.count_launch("counting_rank")
+    if single:
+        K.count_launch("counting_rank_onepass")
     return slot, totals[:parts]
 
 

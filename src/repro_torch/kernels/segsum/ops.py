@@ -14,53 +14,108 @@ Hopper has native float64 and int64, so nothing here leaves the kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch import kernels as K
 from .ref import identity, segment_reduce_ref
 
-__all__ = ["segment_reduce", "sum_plan"]
+__all__ = ["segment_reduce", "sum_plan", "SumPlan"]
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _SIGNATURES = {
-    "segsum_sum": [_i, _i, _c, _c, _ll, _i, _i, _i, _ll, _i, _i, _i, _c, _c,
-                   _c],
+    "segsum_sum": [_i, _i, _i, _c, _c, _ll, _i, _i, _i, _ll, _i, _i, _i, _i,
+                   _c, _c, _c],
     "segsum_minmax": [_i, _i, _c, _c, _ll, _i, _i, _i, _c, _c, _c],
 }
 
-# launch geometry of csrc/segsum.cu (kPrivateCells, kMaxCols, shared memory)
-_SUM_SMEM = 200 * 1024          # shared memory one block may use
+# launch geometry of csrc/segsum.cu.  A constant, never read from the card:
+# the geometry, and with it a float sum's order of additions, follows from
+# the shapes alone.
+_SMS = 132                      # SMs of an H100 SXM
+_SMEM_BLOCK = 232_448           # shared memory one block may use (227 KB)
+_SMEM_SM = 233_472              # shared memory of one SM, 1 KB a block reserved
+_THREADS_SM = 2048
+_ROWS_PER_BLOCK = 8192          # least rows a block takes
+# integers (kAtomic): 512 threads, two blocks an SM, 96 KB of copies each
+_ATOMIC_THREADS = 512
+_ATOMIC_COLS = 4
+_ATOMIC_SMEM = 96 * 1024
+# floats: per-thread partials (kThread) up to _PRIVATE_CELLS cells, else a
+# copy per warp (kWarp)
 _PRIVATE_CELLS = 48
+_PRIVATE_COLS = 8
+_PRIVATE_THREADS = 256
 _WARP_COLS = 4
 _WARPS_MAX = 8
-_ROWS_PER_BLOCK = 8192
-_SUM_BLOCKS_MAX = 2048
+_TAG_BYTES = 1024 * 4           # a warp's claim words (csrc kTagSlots)
+_REGIME = {"atomic": 0, "thread": 1, "warp": 2}
 
 
-def sum_plan(n: int, groups: int, ncols: int, itemsize: int, count: bool
-             ) -> tuple[int, int, int, int, int]:
-    """(nblocks, chunk, group tile, column tile, warps) of one grouped sum.
+class SumPlan(NamedTuple):
+    """Geometry of one grouped sum or count (csrc/segsum.cu)."""
+    regime: str       # "atomic" (integers), "thread" or "warp" (floats)
+    nblocks: int      # blocks; block b covers rows [b * chunk, (b + 1) * chunk)
+    chunk: int
+    gt: int           # groups of a tile
+    ct: int           # columns of a tile
+    warps: int        # float: warps (copies) a block; atomic: shared copies
+    smem: int         # dynamic shared memory of a block, bytes (the launch's)
+    partial: int      # elements of the float partial (0 for atomic)
 
-    A function of the shapes only, so equal inputs reduce in the same order
-    and give the same bits on every run.  Up to ``_PRIVATE_CELLS`` cells the
-    kernel keeps a partial per thread; above, one per warp, so the column
-    tile shrinks until four warps' copies fit in shared memory and the group
-    tile until one does.  A block gets at least 8 rows per partial cell."""
-    ct = 1 if count else ncols
-    if groups * ct <= _PRIVATE_CELLS:
-        gt, warps, rows = groups, 4, _ROWS_PER_BLOCK
+
+def _warp_smem(warps: int, cells: int, itemsize: int) -> int:
+    """Shared memory of a "warp" block: the warps' copies (rounded to 16
+    bytes) and their claim words."""
+    return -(-warps * cells * itemsize // 16) * 16 + warps * _TAG_BYTES
+
+
+def sum_plan(n: int, groups: int, ncols: int, dtype: torch.dtype,
+             count: bool = False) -> SumPlan:
+    """The geometry of one grouped sum (``count``: row count) of ``n`` rows
+    of ``ncols`` columns of ``dtype`` into ``groups`` groups.
+
+    A function of the shapes alone, so equal float inputs reduce in the same
+    order and give the same bits on every run, on any card.  Integers take
+    atomics.  Floats: up to ``_PRIVATE_CELLS`` cells a partial per thread;
+    above, a copy per warp, the column tile shrinking until four warps'
+    copies fit in shared memory and the group tile until one does.  The grid
+    is persistent: ``_SMS`` x the blocks an SM holds, each with at least
+    ``_ROWS_PER_BLOCK`` rows (and 8 per partial cell)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if count or not dtype.is_floating_point:
+        acc = 4 if count or itemsize == 4 else 8
+        ct = 1 if count else min(ncols, _ATOMIC_COLS)
+        tile = groups * ct * acc
+        copies = min(_ATOMIC_THREADS // 32, _ATOMIC_SMEM // max(tile, 1))
+        regime, gt, warps, smem, bps = "atomic", groups, copies, copies * tile, 2
+        rows = _ROWS_PER_BLOCK
+    elif groups * min(ncols, _PRIVATE_COLS) <= _PRIVATE_CELLS:
+        ct = min(ncols, _PRIVATE_COLS)
+        regime, gt, warps = "thread", groups, _PRIVATE_THREADS // 32
+        smem = _PRIVATE_THREADS * ((gt * ct) | 1) * itemsize
+        bps = min(_THREADS_SM // _PRIVATE_THREADS, _SMEM_SM // (smem + 1024))
+        rows = _ROWS_PER_BLOCK
     else:
-        ct = min(ct, _WARP_COLS)
-        while ct > 1 and 4 * groups * ct * itemsize > _SUM_SMEM:
+        regime = "warp"
+        ct = min(ncols, _WARP_COLS)
+        while ct > 1 and _warp_smem(4, groups * ct, itemsize) > _SMEM_BLOCK:
             ct -= 1
-        gt = min(groups, _SUM_SMEM // (ct * itemsize))
-        warps = min(_WARPS_MAX, _SUM_SMEM // (gt * ct * itemsize))
+        gt = min(groups, (_SMEM_BLOCK - _TAG_BYTES - 16) // (ct * itemsize))
+        warps = _WARPS_MAX
+        while warps > 1 and _warp_smem(warps, gt * ct,
+                                       itemsize) > _SMEM_BLOCK:
+            warps -= 1
+        smem = _warp_smem(warps, gt * ct, itemsize)
+        bps = min(_THREADS_SM // (warps * 32), _SMEM_SM // (smem + 1024))
         rows = max(_ROWS_PER_BLOCK, 8 * gt * ct)
-    nblocks = max(1, min(_SUM_BLOCKS_MAX, -(-n // rows)))
-    return nblocks, -(-n // nblocks), gt, ct, warps
+    nblocks = max(1, min(_SMS * max(bps, 1), -(-n // rows)))
+    chunk = -(-n // nblocks)
+    partial = 0 if regime == "atomic" else nblocks * gt * ct
+    return SumPlan(regime, nblocks, chunk, gt, ct, warps, smem, partial)
 
 
 def _ids(gids: torch.Tensor, groups: int) -> torch.Tensor:
@@ -82,19 +137,21 @@ def _sum_kernel(gids: torch.Tensor, values: torch.Tensor | None,
     if n == 0 or groups == 0:
         return torch.zeros((groups, ncols), dtype=dtype, device=dev)
     vals = None if count else values.contiguous()
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    nblocks, chunk, gt, ct, warps = sum_plan(n, groups, ncols, itemsize,
-                                             count)
-    partial = torch.empty(nblocks * gt * ct, dtype=dtype, device=dev)
+    plan = sum_plan(n, groups, ncols, dtype, count)
+    partial = torch.empty(plan.partial, dtype=dtype, device=dev) \
+        if plan.partial else None
     out = torch.empty((groups, ncols), dtype=dtype, device=dev)
     lib = K.load("segsum", _SIGNATURES)
     with torch.cuda.device(dev):
-        rc = lib.segsum_sum(K.dtype_code(dtype), int(count), K.ptr(gids),
-                            K.ptr(vals), n, ncols, groups, nblocks, chunk, gt,
-                            ct, warps, K.ptr(partial), K.ptr(out),
-                            K.stream_of(gids))
+        rc = lib.segsum_sum(K.dtype_code(dtype), int(count),
+                            _REGIME[plan.regime], K.ptr(gids), K.ptr(vals), n,
+                            ncols, groups, plan.nblocks, plan.chunk, plan.gt,
+                            plan.ct, plan.warps, plan.smem, K.ptr(partial),
+                            K.ptr(out), K.stream_of(gids))
     K.check(lib, rc, "segsum_sum")
     K.count_launch("segsum_sum")
+    if count:
+        K.count_launch("segsum_count")
     return out
 
 

@@ -69,6 +69,88 @@ def test_segsum_kernel_vs_plain(cuda, dtype, groups):
     assert torch.equal(again, ss.segment_reduce(gids, v, groups, "sum"))
 
 
+def _bits(t):
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+@pytest.mark.parametrize("groups,ncols", [(8, 5), (1, 1), (2049, 2),
+                                          (8193, 3)])
+def test_segsum_float64_sums_identical_across_calls_and_offsets(
+        cuda, groups, ncols):
+    """Several million rows in every float regime: the same bits on every
+    call, and for ids and values at another storage offset (so another
+    alignment), and within 1e-9 of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(groups)
+    n = 3_000_017
+    gids = torch.randint(0, groups + 1, (n,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    vals = torch.randn((n, ncols), generator=g, device=cuda,
+                       dtype=torch.float64) * 1e4
+    out = ss.segment_reduce(gids, vals, groups, "sum")
+    assert torch.equal(_bits(out), _bits(ss.segment_reduce(gids, vals, groups,
+                                                           "sum")))
+    gbuf = torch.empty(n + 1, dtype=torch.int32, device=cuda)
+    vbuf = torch.empty(n * ncols + 1, dtype=torch.float64, device=cuda)
+    gbuf[1:].copy_(gids)
+    vbuf[1:].copy_(vals.reshape(-1))
+    shifted = ss.segment_reduce(gbuf[1:], vbuf[1:].view(n, ncols), groups,
+                                "sum")
+    assert torch.equal(_bits(out), _bits(shifted))
+    want = ss_ref.segment_reduce_ref(gids, vals, groups, "sum")
+    scale = want.abs().max().item()
+    torch.testing.assert_close(out, want, rtol=1e-9, atol=1e-9 * scale)
+
+
+def test_segsum_float64_sums_identical_beside_a_concurrent_stream(cuda):
+    """Another kernel busy on a second stream changes which blocks run when,
+    never the bits."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    n, groups = 4_000_000, 2049
+    gids = torch.randint(0, groups + 1, (n,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    vals = torch.randn((n, 2), generator=g, device=cuda,
+                       dtype=torch.float64) * 1e4
+    alone = ss.segment_reduce(gids, vals, groups, "sum")
+    a = torch.randn((4096, 4096), generator=g, device=cuda)
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    outs = []
+    with torch.cuda.stream(side):
+        for _ in range(8):
+            a = a @ a / 64.0
+    for _ in range(3):
+        outs.append(ss.segment_reduce(gids, vals, groups, "sum"))
+    torch.cuda.synchronize()
+    for o in outs:
+        assert torch.equal(_bits(o), _bits(alone))
+
+
+@pytest.mark.parametrize("groups", [1, 8, 2049, 8193, 40_000])
+def test_segsum_integer_sums_and_counts_exact(cuda, groups):
+    """Atomics, exact: int32 (wrapping) and int64 sums over 1, 2 and 5
+    columns and the count, with ids outside [0, groups), for tiles in one
+    copy a warp (1, 8), a few copies a block (2049, 8193) and none (40000:
+    straight into the output)."""
+    g = torch.Generator(device=cuda).manual_seed(groups)
+    n = 2_000_003
+    gids = torch.randint(-2, groups + 3, (n,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    K.reset_launches()
+    cnt = ss.segment_reduce(gids, None, groups, "count")
+    assert K.launches["segsum_count"] == K.launches["segsum_sum"] == 1
+    ones = torch.ones((n, 1), dtype=torch.int64, device=cuda)
+    assert torch.equal(cnt, ss_ref.segment_reduce_ref(gids, ones, groups,
+                                                      "sum")[:, 0])
+    for dtype, hi in ((torch.int32, 2**31 - 1), (torch.int64, 2**62)):
+        for ncols in (1, 2, 5):
+            v = torch.randint(-hi, hi, (n, ncols), generator=g, device=cuda,
+                              dtype=dtype)
+            got = ss.segment_reduce(gids, v, groups, "sum")
+            assert torch.equal(got, ss_ref.segment_reduce_ref(gids, v, groups,
+                                                              "sum"))
+    assert K.launches["segsum_count"] == 1
+
+
 @pytest.mark.parametrize("cap,distinct", [(16, 9), (512, 40), (64, 200)])
 def test_hash_insert_kernel_vs_plain(cuda, cap, distinct):
     g = torch.Generator(device=cuda).manual_seed(cap)
@@ -152,7 +234,8 @@ def test_queries_on_card_launch_every_kernel(cuda):
                     np.asarray(want[k], dtype=np.float64), rtol=1e-7)
     # the kernels of run_local's path; the counting rank and the histogram
     # run on the distributed and skew-statistics paths
-    local = ("segsum_sum", "segsum_minmax", "hash_insert", "hash_probe64")
+    local = ("segsum_sum", "segsum_count", "segsum_minmax", "hash_insert",
+             "hash_probe64")
     assert all(K.launches[k] > 0 for k in local), K.launches
 
 
@@ -168,6 +251,54 @@ def test_counting_rank_kernel_vs_plain(cuda, n, parts):
     want_slot, want_counts = rh_ref.counting_rank_ref(keys, parts)
     assert torch.equal(slot, want_slot)
     assert torch.equal(counts, want_counts)
+
+
+@pytest.mark.parametrize("n", [4097, 1_000_003, 6_000_000])
+@pytest.mark.parametrize("parts", [1, 5, 9, 31, 32, 63])
+def test_counting_rank_exact_on_both_sides_of_the_single_pass_width(
+        cuda, n, parts):
+    """Many tiles, widths up to 32 (single pass) and above (three passes);
+    the call is counted once, and under counting_rank_onepass only when the
+    single-pass kernel ran it."""
+    g = torch.Generator(device=cuda).manual_seed(n + parts)
+    keys = torch.randint(0, parts, (n,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    K.reset_launches()
+    slot, counts = rh.counting_rank(keys, parts)
+    single = parts + 1 <= 32
+    assert K.launches["counting_rank"] == 1
+    assert K.launches["counting_rank_onepass"] == int(single)
+    want_slot, want_counts = rh_ref.counting_rank_ref(keys, parts)
+    assert torch.equal(slot, want_slot)
+    assert torch.equal(counts, want_counts)
+    assert rh.rank_design(parts + 1) == \
+        ("single_pass" if single else "three_pass")
+
+
+@pytest.mark.parametrize("parts", [5, 9, 63])
+def test_counting_rank_repeated_and_on_two_streams(cuda, parts):
+    """Back-to-back calls, and calls on two streams at once, each give the
+    solo result: no call finds another's look-back words or ticket."""
+    g = torch.Generator(device=cuda).manual_seed(parts)
+    keys = [torch.randint(0, parts, (n,), generator=g, device=cuda,
+                          dtype=torch.int32) for n in (3_000_001, 2_500_000)]
+    solo = [rh.counting_rank(k, parts) for k in keys]
+    for _ in range(3):
+        for k, want in zip(keys, solo):
+            got = rh.counting_rank(k, parts)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    streams = [torch.cuda.Stream(device=cuda) for _ in keys]
+    outs = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(4):
+        for i, (s, k) in enumerate(zip(streams, keys)):
+            with torch.cuda.stream(s):
+                outs[i].append(rh.counting_rank(k, parts))
+    torch.cuda.synchronize()
+    for i, want in enumerate(solo):
+        for got in outs[i]:
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("n", [1, 2047, 2048, 300_001])
@@ -195,8 +326,9 @@ def test_run_distributed_on_card(cuda, qid):
         np.testing.assert_allclose(np.asarray(got[k], dtype=np.float64),
                                    np.asarray(want[k], dtype=np.float64),
                                    rtol=1e-7)
-    # every shuffle's dispatch ranks its rows with the kernel
+    # every shuffle's dispatch ranks its rows with the single-pass kernel
     assert (K.launches["counting_rank"] > 0) == (stats.shuffles > 0)
+    assert K.launches["counting_rank_onepass"] == K.launches["counting_rank"]
 
 
 def test_sort_path_float_sum_is_deterministic(cuda):

@@ -95,23 +95,44 @@ def test_segment_reduce_empty_and_all_dead():
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+_SMEM_BLOCK = 232_448       # shared memory one H100 block may use
+
+
 def test_sum_plan_tiles_fit_and_depend_only_on_shapes():
-    smem = 200 * 1024
+    n = 60_000_000
     # Q1's shape (8 groups x 5 float64 sums): one tile of per-thread partials
-    nb, chunk, gt, ct, warps = ss.sum_plan(60_000_000, 8, 5, 8, False)
-    assert (gt, ct) == (8, 5) and nb * chunk >= 60_000_000
-    # Q7's shape (2^11 groups, 2 sums): per-warp partials, all in one tile
-    nb, chunk, gt, ct, warps = ss.sum_plan(60_000_000, 2049, 2, 8, False)
-    assert (gt, ct) == (2049, 2) and 4 <= warps <= 8
-    assert warps * gt * ct * 8 <= smem and nb * chunk >= 60_000_000
+    p = ss.sum_plan(n, 8, 5, torch.float64)
+    assert (p.regime, p.gt, p.ct) == ("thread", 8, 5)
+    assert p.smem <= _SMEM_BLOCK and p.nblocks * p.chunk >= n
+    # Q7's shape (2^11 + 1 groups x 2 float64 sums): a copy per warp, one
+    # tile, a persistent grid whose partial is at most 8 MB (was 60 MB)
+    p = ss.sum_plan(n, 2049, 2, torch.float64)
+    assert (p.regime, p.gt, p.ct) == ("warp", 2049, 2) and 4 <= p.warps <= 8
+    assert p.smem == p.warps * (2049 * 2 * 8 + 4096) <= _SMEM_BLOCK
+    assert p.nblocks <= 264 and p.partial * 8 <= 8 * 2**20
+    assert p.partial == p.nblocks * 2049 * 2 and (p.nblocks - 1) * p.chunk < n
     # direct domain 2^13 + 1 with five float64 sums: one column at a time
-    nb, chunk, gt, ct, warps = ss.sum_plan(60_000_000, 8193, 5, 8, False)
-    assert (gt, ct) == (8193, 1) and warps * gt * 8 <= smem and warps >= 1
+    p = ss.sum_plan(n, 8193, 5, torch.float64)
+    assert (p.gt, p.ct) == (8193, 1) and p.smem <= _SMEM_BLOCK
     # a group domain larger than shared memory is tiled over groups
-    nb, chunk, gt, ct, warps = ss.sum_plan(1000, 100_000, 1, 8, True)
-    assert ct == 1 and 0 < gt < 100_000 and warps * gt * 8 <= smem
-    assert nb == 1 and chunk == 1000
-    assert ss.sum_plan(5, 3, 2, 4, False) == ss.sum_plan(5, 3, 2, 4, False)
+    p = ss.sum_plan(1000, 100_000, 1, torch.float64)
+    assert p.ct == 1 and 0 < p.gt < 100_000 and p.smem <= _SMEM_BLOCK
+    assert p.nblocks == 1 and p.chunk >= 1000
+    # integers and counts take atomics: no partial, one copy of the tile per
+    # block at least while it fits (32-bit counters for the count)
+    p = ss.sum_plan(n, 8193, 1, torch.int64, count=True)
+    assert (p.regime, p.partial) == ("atomic", 0)
+    assert p.warps >= 1 and p.smem == p.warps * 8193 * 4 <= 96 * 1024
+    assert p.chunk < 2**31
+    p = ss.sum_plan(n, 2049, 2, torch.int64)
+    assert (p.regime, p.ct, p.partial) == ("atomic", 2, 0)
+    assert p.smem == p.warps * 2049 * 2 * 8
+    assert ss.sum_plan(n, 100_000, 1, torch.int64, count=True).warps == 0
+    # the geometry is a function of the shapes: the same plan every time,
+    # for the same shapes, whatever the data
+    for args in ((5, 3, 2, torch.float64), (n, 2049, 2, torch.float32),
+                 (n, 1, 1, torch.float64)):
+        assert ss.sum_plan(*args) == ss.sum_plan(*args)
 
 
 def test_wrappers_refuse_other_devices():

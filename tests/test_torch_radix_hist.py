@@ -147,3 +147,22 @@ def test_cuda_wrappers_refuse_oversized_parts():
         P.counting_rank(meta, P.COUNTING_RANK_PARTS_MAX + 1)
     with pytest.raises(ValueError, match="parts must be in"):
         P.radix_hist(meta, P.RADIX_HIST_PARTS_MAX + 1)
+
+
+@pytest.mark.parametrize("n,width,design,size", [
+    (1, 2, "single_pass", 2 + 1),
+    (4096, 6, "single_pass", 6 + 1),
+    (4097, 6, "single_pass", 2 * 6 + 1),
+    (15_000_000, 6, "single_pass", 3663 * 6 + 1),   # N = 4: parts 5, width 6
+    (60_000_000, 10, "single_pass", 14649 * 10 + 1),  # N = 8
+    (1000, 32, "single_pass", 32 + 1),
+    (1000, 33, "three_pass", 33),
+    (15_000_000, 64, "three_pass", 3663 * 64),
+    (8193, 4097, "three_pass", 3 * 4097),
+])
+def test_rank_design_and_scratch(n, width, design, size):
+    """The shuffle's widths (N + 2) take the single pass; its scratch holds
+    each tile's look-back word per bin and the ticket, as int64."""
+    assert P.rank_design(width) == design
+    want_dtype = torch.int64 if design == "single_pass" else torch.int32
+    assert P.rank_scratch(n, width) == (size, want_dtype)
