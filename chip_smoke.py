@@ -16,7 +16,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      the counting rank at 1.5 M, 15 M and 60 M rows for the shuffle's parts
      5 and 9 and at parts 63 (three passes), each run twice and compared
      byte for byte; the grouped min and max of float64 and int64, exact;
-     the 64-bit hash probe's build, probe and both timed, beside
+     through ``tools/time_hash_kernels.py``, the group-dictionary insert
+     at 1.5 M rows into 512 slots (40 keys, and Q13's own SF 10 keys) and
+     into 8192 slots (3000 keys), in both designs, against the plain
+     version; the 64-bit hash probe's build, probe and both timed, beside
      the sorted index over the same keys; the partition histogram over SF
      10's l_orderkey, exact; then ``skew_stats`` of SF 10's l_partkey over
      8 partitions, the path that launches the histogram;
@@ -44,8 +47,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      code path, not of a cluster;
   8. with the SF 10 tables freed: the 32-bit hash probe against its plain
      version, bit for bit, over SF 10's l_orderkey (60 M) probing
-     o_orderkey (15 M) as int32 at cap 8, then ``hash_join_probe_auto``,
-     the path that launches it, equal to the sorted-build oracle; flash
+     o_orderkey (15 M) as int32 at caps 8, 16, 32 and 64, every design with
+     and without fill counts, timed beside each cap's layout floor, then
+     ``hash_join_probe_auto``, the path that launches it (once), equal to
+     the sorted-build oracle; flash
      attention against its plain version at the LM path's shape (B 2,
      Hq 32, Hkv 8, S 4096, D 128, causal): float32 (the CUDA-core design)
      within 1e-5, bf16 (the tensor-core design) within one output rounding
@@ -290,47 +295,38 @@ def check_segsum_minmax(dev, n: int) -> None:
     log(f"segsum min and max n={n} G={groups} float64 and int64: exact")
 
 
-def check_hash_insert(dev, n: int) -> dict:
-    import torch
-    from repro_torch.kernels.hash_group import ops, ref
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    result = None
-    for cap, distinct in ((512, 40), (8192, 3000)):
-        # Q13's shape at cap 512: per-customer order counts, a few dozen
-        # distinct keys; cap 8192: thousands of keys, negatives included
-        pool = torch.randint(-2**40, 2**40, (distinct,), generator=g,
-                             device=dev)
-        keys = pool[torch.randint(0, distinct, (n,), generator=g, device=dev)]
-        valid = torch.rand(n, generator=g, device=dev) < 0.9
-        rounds = ops.default_rounds(cap)
-        slot, dk, occ, unres = ops.build_group_dict(keys, valid, cap)
-        pslot, pdk, pocc, punres = ref.hash_insert_ref(keys, valid, cap,
-                                                       rounds)
-
-        def dense(s, d, o):
-            rank = ops.dict_rank(d, o)
-            return torch.where(s >= 0, rank[s.clamp(min=0).long()], -1)
-
-        if bool(unres) != bool(punres):
-            raise AssertionError(f"hash_insert cap {cap}: unresolved differs")
-        if not torch.equal(dense(slot, dk, occ), dense(pslot, pdk, pocc)):
-            raise AssertionError(f"hash_insert cap {cap}: dense ids differ")
-        if not torch.equal(torch.sort(dk[occ]).values,
-                           torch.sort(pdk[pocc]).values):
-            raise AssertionError(f"hash_insert cap {cap}: key sets differ")
-        ms = time_ms(lambda: ops.build_group_dict(keys, valid, cap))
-        plain = time_ms(lambda: ref.hash_insert_ref(keys, valid, cap, rounds),
-                        reps=2)
-        lib = time_ms(lambda: torch.unique(keys[valid], return_inverse=True))
-        log(f"hash_insert  n={n} cap={cap} keys={distinct}: kernel {ms:.3f} "
-            f"ms, plain {plain:.3f} ms, torch.unique {lib:.3f} ms; dense ids "
-            f"exact")
-        if cap == 512:
-            result = kernel_entry(
+def check_hash_insert(dev, db) -> dict:
+    """The group-dictionary insert at ``tools/time_hash_kernels.py``'s
+    ``INSERT_CASES``: 1.5 M rows into 512 slots with 40 keys, Q13's own keys
+    at SF 10 (orders per customer, a third of them 0) into 512, and 1.5 M
+    rows into 8192 slots with 3000 keys.  Each in the design ``cap`` picks
+    and in the global one: dense ids, key sets and the unresolved flag equal
+    the plain version's; timed through the wrapper, with its host and
+    device time apart, beside the plain version, ``torch.unique`` and the
+    bound.  Returns the
+    entry of the 40-key case."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from time_hash_kernels import (INSERT_CASES, insert_inputs, q13_keys,
+                                   time_insert)
+    q13 = q13_keys(db)
+    entry = None
+    for name, cap, distinct in INSERT_CASES:
+        keys, valid = insert_inputs(dev, cap, distinct, q13)
+        r = time_insert(dev, keys, valid, cap, plain=True)
+        log(f"hash_insert  {name} n={r['n']} cap={cap} keys={r['distinct']} "
+            f"({r['design']} design): wrapper {r['ms']:.3f} ms (host "
+            f"{r['host_ms']:.3f} ms a call, device {r['device_ms']:.3f} ms: "
+            f"memset and kernel); shared design {r['shared_ms']:.3f} "
+            f"ms, global design {r['global_ms']:.3f} ms; plain "
+            f"{r['plain_ms']:.3f} ms, torch.unique {r['library_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms; dense ids, key sets and "
+            f"unresolved equal the plain version's in both designs")
+        if (name, cap) == ("uniform", 512):
+            entry = kernel_entry(
                 "hash_insert", "src/repro_torch/kernels/csrc/hash_group.cu",
-                "src/repro/kernels/hash_group/kernel.py:100", ms, plain, lib,
-                0.0, n * (8 + 1 + 4) + cap * 12)
-    return result
+                "src/repro/kernels/hash_group/kernel.py:100", r["ms"],
+                r["plain_ms"], r["library_ms"], 0.0, r["bytes"])
+    return entry
 
 
 def check_radix_hist(dev, db) -> dict:
@@ -669,45 +665,36 @@ def run_distributed_timed(dev, db, results) -> None:
 # ---------------------------------------------------------------------------
 
 def check_hash_probe32(dev, probe_np, build_np) -> tuple[dict, dict]:
-    """SF 10's l_orderkey probing o_orderkey as int32, cap 8: the kernel bit
-    for bit against its plain version on the cap-8 table; then
-    ``hash_join_probe_auto``, the path that launches it, with the counters
-    reset just before and read just after, equal to the sorted-build
-    oracle.  Returns the entry and the path's launch counts."""
+    """SF 10's l_orderkey probing o_orderkey as int32 at every cap that
+    ``hash_join_probe_auto`` builds there (``tools/time_hash_kernels.py``'s
+    ``PROBE_CAPS``): each design, with and without the build's fill counts,
+    bit for bit against the plain version and timed beside the bound and
+    the layout's floors.  Then ``hash_join_probe_auto``, the path that
+    launches it, with the counters reset just before and read just after:
+    one launch, at the cap that held, equal to the sorted-build oracle.
+    Returns the entry of that launch (cap 64, fill counts) and the path's
+    launch counts."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.kernels.hash_probe import ops, ref
+    sys.path.insert(0, str(ROOT / "tools"))
+    from time_hash_kernels import PROBE_CAPS, time_probe32
     probe = torch.from_numpy(probe_np.astype("int32")).to(dev)
     build = torch.from_numpy(build_np.astype("int32")).to(dev)
-    n, m, cap = probe.shape[0], build.shape[0], 8
-    rows = torch.arange(m, dtype=torch.int32, device=dev)
-    buckets = max(128, ops.next_pow2(2 * m) // cap)
-    bkeys, bvals, overflowed = ops.build_bucket_table(build, rows, buckets,
-                                                      cap)
-    got = ops.hash_probe32(probe, bkeys, bvals)
-    chunk = 10_000_000
-
-    def plain():
-        return torch.cat([ref.hash_probe32_ref(probe[i:i + chunk], bkeys,
-                                               bvals)
-                          for i in range(0, n, chunk)])
-
-    if not torch.equal(got, plain()):
-        raise AssertionError("hash_probe32 differs from plain")
-    ms = time_ms(lambda: ops.hash_probe32(probe, bkeys, bvals))
-    plain_ms = time_ms(plain, reps=2)
-    occupied = int((bvals >= 0).sum())
-    # each probe key read and row written once, each occupied lane (key,
-    # row) read once; empty lanes carry nothing
-    nbytes = n * (4 + 4) + occupied * 8
-    log(f"hash_probe32 n={n} build={m} B={buckets} C={cap} "
-        f"occupied={occupied} overflowed={bool(overflowed)}: kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms (no single library call), "
-        f"bound {bound(nbytes)[0]:.3f} ms; exact")
-    entry = kernel_entry(
-        "hash_probe32", "src/repro_torch/kernels/csrc/hash_probe.cu",
-        "src/repro/kernels/hash_probe/kernel.py:65", ms, plain_ms, None, 0.0,
-        nbytes)
+    rows = torch.arange(build.shape[0], dtype=torch.int32, device=dev)
+    timed = {}
+    for cap in PROBE_CAPS:
+        r = timed[cap] = time_probe32(dev, probe, build, cap, plain=True)
+        designs = "; ".join(f"{k} {v['ms']:.3f}"
+                            for k, v in r["designs"].items())
+        log(f"hash_probe32 n={r['n']} build={r['build']} B={r['buckets']} "
+            f"C={cap} occupied={r['occupied']} overflowed={r['overflowed']}"
+            f": all lanes {r['ms']:.3f} ms (device "
+            f"{r['device_ms']:.3f}), filled lanes {r['counts_ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms (no single library call), bound "
+            f"{r['bound_ms']:.3f} ms, layout floor {r['floor_ms']:.3f} ms "
+            f"(filled lanes {r['floor_filled_ms']:.3f}); designs: {designs} "
+            f"ms; every design exact")
 
     torch.cuda.synchronize(dev)
     K.reset_launches()
@@ -725,9 +712,14 @@ def check_hash_probe32(dev, probe_np, build_np) -> tuple[dict, dict]:
         f"held at cap {cap_held} ({secs * 1e3:.1f} ms with the builds), "
         f"every lineitem found its order, equal to the sorted-build oracle; "
         f"launches {json.dumps(counts)}")
-    if counts["hash_probe32"] <= 0:
-        raise AssertionError("hash_join_probe_auto did not launch "
-                             "hash_probe32")
+    if counts["hash_probe32"] != 1:
+        raise AssertionError(f"hash_join_probe_auto launched hash_probe32 "
+                             f"{counts['hash_probe32']} times, not once")
+    r = timed[cap_held]
+    entry = kernel_entry(
+        "hash_probe32", "src/repro_torch/kernels/csrc/hash_probe.cu",
+        "src/repro/kernels/hash_probe/kernel.py:65", r["counts_ms"],
+        r["plain_ms"], None, 0.0, r["bytes"])
     return entry, counts
 
 
@@ -1071,7 +1063,7 @@ def main() -> int:
     n_li = 60_000_000          # SF 10 lineitem rows
     entries = check_group_kernels(dev)
     check_segsum_minmax(dev, n_li)
-    entries.append(check_hash_insert(dev, 1_500_000))
+    entries.append(check_hash_insert(dev, db10))
     entries.append(check_hash_probe(dev, n_li, 15_000_000))
     entries.append(check_radix_hist(dev, db10))
     torch.cuda.synchronize()

@@ -169,8 +169,10 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of PyTorch's current stream on ``t``'s device (the raw handle,
+    without building a ``torch.cuda.Stream``: a few microseconds less host
+    time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -71,28 +71,124 @@ hash_probe64_kernel(const long long* __restrict__ keys, long long n,
   out[i] = v;
 }
 
-// One thread per probe row: hash the int32 key with the build's murmur32,
-// then compare it with all C lanes of its bucket and keep the largest
-// matching build row (-1 when none), exactly the plain version's max over
-// the lanes.  No early stop: the 32-bit table marks an empty lane only by
-// the SENTINEL key, which is also a legal key, and a bucket's lanes lie in
-// one or two 32-byte sectors per plane at the default C = 8.
-__global__ void __launch_bounds__(kThreads)
-hash_probe32_kernel(const int32_t* __restrict__ keys, long long n,
-                    const int32_t* __restrict__ bkeys,
-                    const int32_t* __restrict__ bvals, int buckets, int cap,
-                    int32_t* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t key = keys[i];
-  const size_t base = static_cast<size_t>(
-      murmur32(static_cast<uint32_t>(key)) % static_cast<uint32_t>(buckets)) * cap;
-  int32_t v = -1;
-#pragma unroll 8
-  for (int c = 0; c < cap; ++c) {
-    if (__ldg(bkeys + base + c) == key) v = max(v, __ldg(bvals + base + c));
+// ---------------------------------------------------------------------------
+// hash_probe32 (its note is at its entry point, below)
+
+constexpr int kProbeThreads = 256;
+constexpr int kInFlight = 4;        // probes a thread keeps in flight
+
+__device__ __forceinline__ uint32_t bucket32(int32_t key, uint32_t buckets) {
+  const uint32_t h = murmur32(static_cast<uint32_t>(key));
+  return (buckets & (buckets - 1)) == 0 ? (h & (buckets - 1)) : h % buckets;
+}
+
+// Both designs read a lane only below its bucket's fill (`counts`, clamped
+// to C; C when absent): lanes fill front to back and an empty lane holds
+// row -1, so skipping it never changes the max.  One thread a probe, each
+// keeping kInFlight probes in flight: their loads of a step are issued
+// together.  A thread notes where a probe matched and reads that lane's row
+// after the loop, all probes' at once; a further match of one probe (a key
+// built twice) reads its row on the spot.
+
+// Loop design: a key row read 16 bytes (4 lanes) at a time up to the fill,
+// its first 16 bytes beside the fill count.
+__global__ void __launch_bounds__(kProbeThreads)
+hash_probe32_loop_kernel(const int32_t* __restrict__ keys, long long n,
+                         const int4* __restrict__ bkeys,
+                         const int32_t* __restrict__ bvals,
+                         const int32_t* __restrict__ counts, uint32_t buckets,
+                         int cap, int32_t* __restrict__ out) {
+  constexpr int P = kInFlight;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kProbeThreads * P + threadIdx.x;
+  const int row4 = cap >> 2;
+  int32_t key[P], best[P], hit[P];
+  size_t row[P];
+  int fill[P];
+  int4 q[P];
+  int most = 0;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const long long i = first + static_cast<long long>(p) * kProbeThreads;
+    key[p] = i < n ? __ldg(keys + i) : 0;
+    const uint32_t b = bucket32(key[p], buckets);
+    row[p] = static_cast<size_t>(b) * row4;
+    q[p] = i < n ? __ldg(bkeys + row[p]) : make_int4(0, 0, 0, 0);
+    fill[p] = i >= n ? 0 : counts == nullptr ? cap : min(cap, __ldg(counts + b));
+    most = max(most, fill[p]);
+    best[p] = hit[p] = -1;
   }
-  out[i] = v;
+  for (int c = 0; 4 * c < most; ++c) {
+    if (c > 0) {
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        q[p] = 4 * c < fill[p] ? __ldg(bkeys + row[p] + c) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int32_t kk[4] = {q[p].x, q[p].y, q[p].z, q[p].w};
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const int lane = 4 * c + l;
+        if (lane < fill[p] && kk[l] == key[p]) {
+          if (hit[p] < 0) {
+            hit[p] = lane;
+          } else {
+            best[p] = max(best[p], __ldg(bvals + 4 * row[p] + lane));
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int32_t v = hit[p] >= 0 ? __ldg(bvals + 4 * row[p] + hit[p]) : -1;
+    best[p] = max(best[p], v);
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const long long i = first + static_cast<long long>(p) * kProbeThreads;
+    if (i < n) out[i] = best[p];
+  }
+}
+
+// Scalar design, for a C that is not a multiple of 4 or a plane that is not
+// 16-byte aligned: lanes one at a time up to the fill.
+__global__ void __launch_bounds__(kProbeThreads)
+hash_probe32_scalar_kernel(const int32_t* __restrict__ keys, long long n,
+                           const int32_t* __restrict__ bkeys,
+                           const int32_t* __restrict__ bvals,
+                           const int32_t* __restrict__ counts,
+                           uint32_t buckets, int cap,
+                           int32_t* __restrict__ out) {
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kProbeThreads * kInFlight + threadIdx.x;
+  int32_t key[kInFlight], best[kInFlight];
+  size_t base[kInFlight];
+  int fill[kInFlight];
+  int most = 0;
+#pragma unroll
+  for (int p = 0; p < kInFlight; ++p) {
+    const long long i = first + static_cast<long long>(p) * kProbeThreads;
+    key[p] = i < n ? __ldg(keys + i) : 0;
+    const uint32_t b = bucket32(key[p], buckets);
+    base[p] = static_cast<size_t>(b) * cap;
+    fill[p] = i >= n ? 0 : counts == nullptr ? cap : min(cap, __ldg(counts + b));
+    most = max(most, fill[p]);
+    best[p] = -1;
+  }
+  for (int c = 0; c < most; ++c) {
+#pragma unroll
+    for (int p = 0; p < kInFlight; ++p) {
+      if (c < fill[p] && __ldg(bkeys + base[p] + c) == key[p])
+        best[p] = max(best[p], __ldg(bvals + base[p] + c));
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kInFlight; ++p) {
+    const long long i = first + static_cast<long long>(p) * kProbeThreads;
+    if (i < n) out[i] = best[p];
+  }
 }
 
 }  // namespace
@@ -115,24 +211,55 @@ REPRO_EXPORT int hash_probe64(const void* keys, long long n, const void* heads,
 
 // hash_probe32 replaces repro/kernels/hash_probe/kernel.py::hash_probe_pallas,
 // which holds the whole (B, C) table resident in VMEM and compares a block
-// of probe keys against all C lanes of their buckets at once.
+// of probe keys against all C lanes of their buckets at once.  The (B, C)
+// key and row planes are the contract here (bit-exact with the reference's
+// build), so the kernel is made fast on that layout.
 //
 // Bound on an H100: bytes.  A probe reads its 4-byte key and writes its
 // 4-byte row; the table's occupied lanes (key and row, 8 bytes each) are
 // read once.  At SF 10 (60 M l_orderkey probes into 15 M o_orderkey) that
-// is 0.6 GB, 0.18 ms at 3.35 TB/s; as with the 64-bit probe, random buckets
-// scatter the table reads over sectors L2 cannot keep.
+// is 0.6 GB, 0.18 ms at 3.35 TB/s.  The layout adds to that: a probe's
+// bucket is random, so each distinct bucket costs its key row rounded up to
+// 32-byte sectors (C = 64: 8 sectors) and a row sector.  l_orderkey is
+// clustered (1-7 lines an order, in order), so neighbouring probes share a
+// bucket and one request serves them.  What bounds the kernel is how many
+// of those scattered reads are in flight: the one-lane-at-a-time kernel
+// before this one waited on C scalar loads and then a dependent row load
+// per probe.  The loop design keeps four probes' 16-byte loads in flight a
+// thread, reads a bucket only up to its fill (the build's counts, from
+// C = 32 on: ops.probe32_plan) and issues the matched rows' loads together.
+// Measured (tools/time_hash_kernels.py): splitting a row over a group of
+// threads lost at every C, eight probes a thread lost to four, and reading
+// rows beside keys lost to reading the matched lane.
 //
-// keys (n,) int32 vs bucket planes (buckets, cap) int32 -> out (n,) int32.
+// keys (n,) int32 vs bucket planes (buckets, cap) int32, counts (buckets,)
+// int32 fill counts or null -> out (n,) int32.  design 0: scalar; 1: loop,
+// which needs 16-byte aligned planes and a cap that is a multiple of 4.
 REPRO_EXPORT int hash_probe32(const void* keys, long long n, const void* bkeys,
-                              const void* bvals, int buckets, int cap,
-                              void* out, void* stream) {
+                              const void* bvals, const void* counts,
+                              int buckets, int cap, int design, void* out,
+                              void* stream) {
   if (n == 0) return cudaSuccess;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  hash_probe32_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(keys), n, static_cast<const int32_t*>(bkeys),
-      static_cast<const int32_t*>(bvals), buckets, cap,
-      static_cast<int32_t*>(out));
+  if (buckets <= 0 || cap <= 0) return cudaErrorInvalidValue;
+  const bool aligned = (reinterpret_cast<uintptr_t>(bkeys) |
+                        reinterpret_cast<uintptr_t>(bvals)) % 16 == 0;
+  if (design == 1 && (cap % 4 != 0 || !aligned)) return cudaErrorInvalidValue;
+  const long long per_block = static_cast<long long>(kProbeThreads) * kInFlight;
+  const unsigned blocks = static_cast<unsigned>((n + per_block - 1) / per_block);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* k = static_cast<const int32_t*>(keys);
+  const int32_t* v = static_cast<const int32_t*>(bvals);
+  const int32_t* c = static_cast<const int32_t*>(counts);
+  const uint32_t nb = static_cast<uint32_t>(buckets);
+  int32_t* o = static_cast<int32_t*>(out);
+  if (design == 1) {
+    hash_probe32_loop_kernel<<<blocks, kProbeThreads, 0, st>>>(
+        k, n, static_cast<const int4*>(bkeys), v, c, nb, cap, o);
+  } else if (design == 0) {
+    hash_probe32_scalar_kernel<<<blocks, kProbeThreads, 0, st>>>(
+        k, n, static_cast<const int32_t*>(bkeys), v, c, nb, cap, o);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }

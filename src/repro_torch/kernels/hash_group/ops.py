@@ -8,9 +8,14 @@ row that exhausts its window stays unresolved, which the relational layer
 turns into the overflow flag.
 
 ``build_group_dict`` launches ``csrc/hash_group.cu`` on a CUDA tensor and
-runs the plain version (``ref.hash_insert_ref``) on a CPU tensor.
-``dict_rank`` is plain PyTorch on either device, as it is plain jnp in the
-reference.
+runs the plain version (``ref.hash_insert_ref``) on a CPU tensor.  On the
+card :func:`insert_design` picks the kernel's design from ``cap`` alone:
+``shared`` (each block builds its own dictionary in shared memory and
+publishes its distinct keys once) up to ``SHARED_CAP`` slots, else
+``global`` (every row probes the dictionary in device memory).  The call is
+one memset and one kernel: the kernel writes the occupancy and the
+unresolved flag itself.  ``dict_rank`` is plain PyTorch on either device, as
+it is plain jnp in the reference.
 """
 from __future__ import annotations
 
@@ -22,13 +27,22 @@ from repro_torch import kernels as K
 from repro_torch.kernels.hash_probe.ops import next_pow2
 from .ref import hash_insert_ref
 
-__all__ = ["default_rounds", "dict_capacity", "build_group_dict", "dict_rank"]
+__all__ = ["default_rounds", "dict_capacity", "insert_design",
+           "build_group_dict", "dict_rank"]
 
 _MAX_ROUNDS = 32
+# the largest dictionary the shared design is chosen for.  It runs while its
+# 12 bytes a slot (an int64 key and an int32 global slot) fit in a block's
+# 227 KB of shared memory, but measured on an H100
+# (tools/time_hash_kernels.py) the global design wins above 4096 slots: at
+# cap 8192 the few thousand keys that every block publishes cost more than
+# the rows' own probes of the device dictionary.
+SHARED_CAP = 4096
+SHARED_BYTES = 232448           # the most shared memory the kernel may take
+_DESIGNS = ("shared", "global")
 _c = ctypes.c_void_p
 _SIGNATURES = {"hash_insert": [_c, _c, ctypes.c_longlong, ctypes.c_int,
-                               ctypes.c_int, _c, _c, _c, _c]}
-_OCCUPIED = 2                   # csrc/hash_group.cu slot state "holds a key"
+                               ctypes.c_int, ctypes.c_int, _c, _c, _c]}
 
 
 def default_rounds(cap: int) -> int:
@@ -38,6 +52,11 @@ def default_rounds(cap: int) -> int:
 def dict_capacity(groups_hint: int, factor: float = 2.0) -> int:
     """Dictionary slots for a claimed group bound under ``factor`` headroom."""
     return next_pow2(max(16, int(round(groups_hint * factor))))
+
+
+def insert_design(cap: int) -> str:
+    """``shared`` up to ``SHARED_CAP`` slots, ``global`` above."""
+    return "shared" if cap <= SHARED_CAP else "global"
 
 
 def build_group_dict(keys: torch.Tensor, valid: torch.Tensor, cap: int,
@@ -60,20 +79,27 @@ def build_group_dict(keys: torch.Tensor, valid: torch.Tensor, cap: int,
     if keys.device.type != "cuda":
         raise ValueError(f"build_group_dict: unsupported device {keys.device}")
     dev = keys.device
-    k = keys.to(torch.int64).contiguous()
-    v = valid.to(torch.uint8).contiguous()
+    k = (keys if keys.dtype == torch.int64 else keys.to(torch.int64)) \
+        .contiguous()
+    v = (valid.view(torch.uint8) if valid.dtype == torch.bool
+         else valid.to(torch.uint8)).contiguous()
     n = k.shape[0]
-    dkeys = torch.zeros(cap, dtype=torch.int64, device=dev)
-    state = torch.zeros(cap, dtype=torch.int32, device=dev)
-    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    # one allocation: the dictionary, zeroed by the C call (keys (cap,)
+    # int64, the slot states (cap,) int32, occupied (cap,) bool, the
+    # unresolved flag), then the rows' slots from a 16-byte boundary
+    head = -(-(13 * cap + 1) // 16) * 16
+    buf = torch.empty(head + 4 * n, dtype=torch.uint8, device=dev)
+    dkeys, _, occupied, flag, slot = buf.split(
+        [8 * cap, 4 * cap, cap, head - 13 * cap, 4 * n])
     lib = K.load("hash_group", _SIGNATURES)
     with torch.cuda.device(dev):
-        rc = lib.hash_insert(K.ptr(k), K.ptr(v), n, cap, rounds, K.ptr(dkeys),
-                             K.ptr(state), K.ptr(slot), K.stream_of(k))
+        rc = lib.hash_insert(K.ptr(k), K.ptr(v), n, cap, rounds,
+                             _DESIGNS.index(insert_design(cap)), K.ptr(buf),
+                             K.ptr(slot), K.stream_of(k))
     K.check(lib, rc, "hash_insert")
     K.count_launch("hash_insert")
-    unresolved = (valid & (slot < 0)).any()
-    return slot, dkeys, state == _OCCUPIED, unresolved
+    return (slot.view(torch.int32), dkeys.view(torch.int64),
+            occupied.view(torch.bool), flag[0].view(torch.bool))
 
 
 def dict_rank(dict_keys: torch.Tensor, occupied: torch.Tensor,

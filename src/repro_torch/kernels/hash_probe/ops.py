@@ -25,7 +25,13 @@ factor).
 
 The 32-bit build is the reference's: one stable argsort by bucket and a
 rank within each bucket, with no dedup (build keys are unique by contract),
-into (B, C) planes.
+into (B, C) planes.  Those planes are the contract, so the 32-bit probe is
+made fast on them: :func:`probe32_plan` picks its design from C alone (a
+loop of 16-byte loads of the key row; lane by lane where C is no multiple
+of 4 or a plane is not 16-byte aligned), and :func:`hash_join_probe` hands
+it the build's fill counts, so that from C = 32 on a probe reads only a
+bucket's filled lanes.
+``hash_join_probe_auto`` builds until a capacity holds and probes once.
 
 ``hash_probe64`` and ``hash_probe32`` launch ``csrc/hash_probe.cu`` on a CUDA
 tensor and run their plain versions (``ref.hash_probe64_ref``,
@@ -35,6 +41,7 @@ point: it runs on ``cuda`` unless the caller names another device.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -44,15 +51,17 @@ from .ref import (bucket_of, bucket_of32, hash_probe32_ref, hash_probe64_ref,
                   murmur32, split64)
 
 __all__ = ["SENTINEL", "next_pow2", "build_bucket_table64", "hash_probe64",
-           "build_bucket_table", "hash_probe32", "hash_join_probe",
-           "hash_join_probe_auto", "bucket_of", "murmur32", "split64"]
+           "build_bucket_table", "Probe32Plan", "probe32_plan", "hash_probe32",
+           "hash_join_probe", "hash_join_probe_auto", "bucket_of", "murmur32",
+           "split64"]
 
 SENTINEL = -2147483648          # empty lane of both key planes
 _c = ctypes.c_void_p
 _SIGNATURES = {"hash_probe64": [_c, ctypes.c_longlong, _c, _c, ctypes.c_int,
                                 _c, _c],
-               "hash_probe32": [_c, ctypes.c_longlong, _c, _c, ctypes.c_int,
-                                ctypes.c_int, _c, _c]}
+               "hash_probe32": [_c, ctypes.c_longlong, _c, _c, _c,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _c,
+                                _c]}
 
 
 def next_pow2(x: int) -> int:
@@ -153,6 +162,13 @@ def build_bucket_table(keys: torch.Tensor, vals: torch.Tensor, buckets: int,
     hold ``SENTINEL`` and -1.  Keys past ``cap`` in a bucket are dropped and
     raise the overflow flag.  Bit-exact with the reference's
     ``build_bucket_table``."""
+    bkeys, bvals, _, overflowed = _bucket_table(keys, vals, buckets, cap)
+    return bkeys, bvals, overflowed
+
+
+def _bucket_table(keys, vals, buckets: int, cap: int):
+    """:func:`build_bucket_table`'s planes and flag, and each bucket's fill
+    count (B,) int32: its filled lanes, at most ``cap``."""
     dev = keys.device
     m = keys.shape[0]
     k32 = keys.to(torch.int32)
@@ -172,36 +188,82 @@ def build_bucket_table(keys: torch.Tensor, vals: torch.Tensor, buckets: int,
         out[flat] = src[order].to(torch.int32)
         return out[:-1].reshape(buckets, cap)
 
-    return plane(SENTINEL, k32), plane(-1, vals), (counts > cap).any()
+    return (plane(SENTINEL, k32), plane(-1, vals),
+            counts.clamp(max=cap).to(torch.int32), (counts > cap).any())
+
+
+@dataclasses.dataclass(frozen=True)
+class Probe32Plan:
+    """Design of the 32-bit probe kernel (``csrc/hash_probe.cu``): ``loop``
+    reads a key row 16 bytes at a time, ``scalar`` lane by lane; ``counts``:
+    read only the filled lanes where the caller gives the fill counts."""
+    design: str
+    counts: bool = True
+
+
+_PROBE32_DESIGNS = ("scalar", "loop")
+
+
+def probe32_plan(cap: int, aligned: bool = True) -> Probe32Plan:
+    """The 32-bit probe's design for C = ``cap`` lanes, from C alone: the
+    loop of 16-byte loads, which needs C a multiple of 4 and 16-byte
+    ``aligned`` planes (else lane by lane).  Up to C = 16 a key row is at
+    most 64 bytes, read whole at no more cost, and a fill count would only
+    add a dependent load; above, the counts cut the sectors read."""
+    if not aligned or cap % 4:
+        return Probe32Plan("scalar")
+    return Probe32Plan("loop", counts=cap > 16)
 
 
 def hash_probe32(probe_keys: torch.Tensor, bkeys: torch.Tensor,
-                 bvals: torch.Tensor) -> torch.Tensor:
+                 bvals: torch.Tensor,
+                 counts: torch.Tensor | None = None) -> torch.Tensor:
     """(n,) int32 probe keys vs a (B, C) int32 bucket table -> the largest
-    matching build row or -1 (int32), the max over the bucket's C lanes."""
+    matching build row or -1 (int32), the max over the bucket's C lanes.
+    With ``counts`` ((B,) fill counts of a table whose lanes fill front to
+    back and whose empty lanes hold row -1, as :func:`build_bucket_table`
+    makes them) only a bucket's first ``counts[b]`` lanes are read; the
+    answer is the same."""
     if bkeys.ndim != 2 or bkeys.shape != bvals.shape:
         raise ValueError("hash_probe32: bucket planes must share one (B, C) "
                          "shape")
+    if counts is not None and counts.shape != bkeys.shape[:1]:
+        raise ValueError("hash_probe32: counts must be (B,)")
     if probe_keys.device.type == "cpu":
-        return hash_probe32_ref(probe_keys, bkeys, bvals)
+        return hash_probe32_ref(probe_keys, bkeys, bvals, counts)
     if probe_keys.device.type != "cuda":
         raise ValueError(f"hash_probe32: unsupported device {probe_keys.device}")
     keys = probe_keys.to(torch.int32).contiguous()
-    for t in (bkeys, bvals):
+    for t in (bkeys, bvals) + (() if counts is None else (counts,)):
         if t.dtype != torch.int32 or t.device != keys.device:
-            raise TypeError("hash_probe32: bucket planes must be int32 on the "
-                            "probe keys' device")
+            raise TypeError("hash_probe32: bucket planes and counts must be "
+                            "int32 on the probe keys' device")
     bkeys, bvals = bkeys.contiguous(), bvals.contiguous()
+    if counts is not None:
+        counts = counts.contiguous()
     buckets, cap = bkeys.shape
+    plan = probe32_plan(cap, bkeys.data_ptr() % 16 == 0 and
+                        bvals.data_ptr() % 16 == 0)
     out = torch.empty(keys.shape[0], dtype=torch.int32, device=keys.device)
     lib = K.load("hash_probe", _SIGNATURES)
     with torch.cuda.device(keys.device):
         rc = lib.hash_probe32(K.ptr(keys), keys.shape[0], K.ptr(bkeys),
-                              K.ptr(bvals), buckets, cap, K.ptr(out),
+                              K.ptr(bvals), K.ptr(counts if plan.counts
+                                                  else None),
+                              buckets, cap,
+                              _PROBE32_DESIGNS.index(plan.design), K.ptr(out),
                               K.stream_of(keys))
     K.check(lib, rc, "hash_probe32")
     K.count_launch("hash_probe32")
     return out
+
+
+def _join_table(build_keys: torch.Tensor, build_vals: torch.Tensor,
+                cap: int):
+    """The reference's sizing, B = max(128, next_pow2(2 m) / cap), and
+    :func:`_bucket_table` of the build side."""
+    buckets = max(128, next_pow2(2 * max(1, build_keys.shape[0])) // cap)
+    return _bucket_table(build_keys, build_vals, buckets, cap)
 
 
 def hash_join_probe(probe_keys, build_keys, build_vals, cap: int = 8,
@@ -210,27 +272,30 @@ def hash_join_probe(probe_keys, build_keys, build_vals, cap: int = 8,
     overflowed (0-d bool)).
 
     Builds a (B, ``cap``) table with B = max(128, next_pow2(2 m) / cap), as
-    the reference sizes it, and probes it with :func:`hash_probe32`.  Runs on
-    ``device`` (``cuda`` unless the caller names another; raises without
-    CUDA); inputs are moved there."""
+    the reference sizes it, and probes it with :func:`hash_probe32`, handing
+    it the build's fill counts.  Runs on ``device`` (``cuda`` unless the
+    caller names another; raises without CUDA); inputs are moved there."""
     dev = resolve_device(device)
     probe, bk, bv = (torch.as_tensor(t, device=dev)
                      for t in (probe_keys, build_keys, build_vals))
-    buckets = max(128, next_pow2(2 * max(1, bk.shape[0])) // cap)
-    bkeys, bvals, overflowed = build_bucket_table(bk, bv, buckets, cap)
-    return hash_probe32(probe, bkeys, bvals), overflowed
+    bkeys, bvals, fill, overflowed = _join_table(bk, bv, cap)
+    return hash_probe32(probe, bkeys, bvals, fill), overflowed
 
 
 def hash_join_probe_auto(probe_keys, build_keys, build_vals, cap: int = 8,
                          max_tries: int = 4, device=None):
     """Capacity escalation on the host: double ``cap`` while the build
-    overflows.  Returns (rows, the cap that held); raises if ``max_tries``
-    builds all overflow.  The engine does not use this loop: its joins
-    surface the overflow flag and the runner re-executes the query."""
+    overflows, then probe once, at the cap that held.  Returns (rows, that
+    cap), the values of the reference's loop, which probes every build; raises
+    if ``max_tries`` builds all overflow.  The engine does not use this
+    loop: its joins surface the overflow flag and the runner re-executes the
+    query."""
+    dev = resolve_device(device)
+    probe, bk, bv = (torch.as_tensor(t, device=dev)
+                     for t in (probe_keys, build_keys, build_vals))
     for _ in range(max_tries):
-        out, overflowed = hash_join_probe(probe_keys, build_keys, build_vals,
-                                          cap=cap, device=device)
+        bkeys, bvals, fill, overflowed = _join_table(bk, bv, cap)
         if not bool(overflowed):
-            return out, cap
+            return hash_probe32(probe, bkeys, bvals, fill), cap
         cap *= 2
     raise RuntimeError(f"bucket overflow persists at cap={cap}")

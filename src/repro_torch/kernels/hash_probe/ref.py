@@ -68,12 +68,17 @@ def bucket_of32(keys: torch.Tensor, buckets: int) -> torch.Tensor:
 
 
 def hash_probe32_ref(probe_keys: torch.Tensor, bkeys: torch.Tensor,
-                     bvals: torch.Tensor) -> torch.Tensor:
+                     bvals: torch.Tensor,
+                     counts: torch.Tensor | None = None) -> torch.Tensor:
     """(n,) int32 probe keys vs a (B, C) int32 bucket table -> the largest
-    matching build row or -1, the max over all C lanes (int32)."""
+    matching build row or -1, the max over all C lanes (int32), or over the
+    first ``counts[b]`` lanes of bucket b where fill counts are given."""
     keys = probe_keys.to(torch.int32)
     b = bucket_of32(keys, bkeys.shape[0])
     hit = bkeys[b] == keys[:, None]                               # (n, C)
+    if counts is not None:
+        lane = torch.arange(bkeys.shape[1], device=bkeys.device)
+        hit &= lane < counts[b][:, None]
     neg = torch.full((), -1, dtype=bvals.dtype, device=bvals.device)
     return torch.where(hit, bvals[b], neg).amax(dim=1)
 

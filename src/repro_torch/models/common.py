@@ -114,10 +114,33 @@ def rope_freqs(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
+_cpu_math_warm = False
+
+
+def warm_cpu_math() -> None:
+    """Run torch's CPU ``cos`` and ``sin`` once, in float32, on enough
+    elements that every thread takes a part (ROADMAP C4).  Those two go
+    through MKL's vector math library in 2048-element parts across threads,
+    and on the H100 machine's host (torch 2.11.0+cu128, MKL 2024.2) the
+    first such call of a process returned one part at about 11-bit accuracy
+    in 2 of 60 fresh processes (RoPE's rotated queries off by up to 5.7e-4;
+    ``tools/cpu_first_forward.py``); every later call was exact.  RoPE is
+    the model's only such call, so :func:`apply_rope` runs this once per
+    process before its first CPU call."""
+    global _cpu_math_warm
+    if not _cpu_math_warm:
+        x = torch.linspace(0.0, 4096.0, 4096 * max(1, torch.get_num_threads()))
+        torch.cos(x)
+        torch.sin(x)
+        _cpu_math_warm = True
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x (..., S, H, D); positions (..., S) integer.  Rotates the two halves
     of each head in float32 and casts back to x's dtype."""
+    if x.device.type == "cpu":
+        warm_cpu_math()
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                 # (D/2,)
     ang = positions.float()[..., None] * freqs             # (..., S, D/2)

@@ -169,6 +169,67 @@ def test_hash_insert_kernel_vs_plain(cuda, cap, distinct):
         assert torch.equal(dense(slot, dk, occ), dense(pslot, pdk, pocc))
 
 
+# (cap, distinct keys, shape of the draw): a third of the rows on one key
+# ("dominant", as Q13's customers without orders), that key INT64_MIN (the
+# shared design's empty marker, so those rows take the global probe), one
+# key for every row, and more keys than slots (unresolved)
+_INSERT_CASES = {"cap16": (16, 9, None), "cap512": (512, 40, None),
+                 "cap8192": (8192, 3000, None), "overflow": (64, 200, None),
+                 "dominant": (512, 40, "dominant"),
+                 "int64_min": (512, 40, "int64_min"), "pool1": (512, 1, None)}
+
+
+@pytest.mark.parametrize("design", ["shared", "global"])
+@pytest.mark.parametrize("case", sorted(_INSERT_CASES))
+def test_hash_insert_designs_vs_plain(cuda, monkeypatch, design, case):
+    """Both designs against the plain version: the unresolved flag, and
+    where every row was placed the dense ids and the key set; a placed row's
+    slot always holds its key."""
+    cap, distinct, shape = _INSERT_CASES[case]
+    monkeypatch.setattr(hg, "insert_design", lambda cap: design)
+    g = torch.Generator(device=cuda).manual_seed(cap + distinct)
+    n = 300_000
+    pool = torch.randint(-2**62, 2**62, (distinct,), generator=g, device=cuda)
+    keys = pool[torch.randint(0, distinct, (n,), generator=g, device=cuda)]
+    third = torch.rand(n, generator=g, device=cuda) < 1 / 3
+    if shape == "dominant":
+        keys = torch.where(third, 0, keys)
+    elif shape == "int64_min":
+        keys = torch.where(third, torch.iinfo(torch.int64).min, keys)
+    valid = torch.rand(n, generator=g, device=cuda) < 0.8
+    K.reset_launches()
+    slot, dk, occ, unres = hg.build_group_dict(keys, valid, cap)
+    torch.cuda.synchronize()
+    assert K.launches["hash_insert"] == 1
+    pslot, pdk, pocc, punres = hg_ref.hash_insert_ref(
+        keys, valid, cap, hg.default_rounds(cap))
+    assert bool(unres) == bool(punres) == (distinct > cap)
+    placed = slot >= 0
+    assert torch.equal(dk[slot[placed].long()], keys[placed])
+    assert bool(occ[slot[placed].long()].all())
+    assert bool(unres) == bool((valid & ~placed).any())
+    if not bool(unres):
+        def dense(s, d, o):
+            r = hg.dict_rank(d, o)
+            return torch.where(s >= 0, r[s.clamp(min=0).long()], -1)
+        assert torch.equal(dense(slot, dk, occ), dense(pslot, pdk, pocc))
+        assert torch.equal(torch.sort(dk[occ]).values,
+                           torch.sort(pdk[pocc]).values)
+
+
+@pytest.mark.parametrize("design", ["shared", "global"])
+def test_hash_insert_designs_no_rows_and_no_valid_rows(cuda, monkeypatch,
+                                                       design):
+    monkeypatch.setattr(hg, "insert_design", lambda cap: design)
+    for n in (0, 5000):
+        keys = torch.arange(n, dtype=torch.int64, device=cuda) - 7
+        valid = torch.zeros(n, dtype=torch.bool, device=cuda)
+        slot, dk, occ, unres = hg.build_group_dict(keys, valid, 64)
+        assert slot.shape == (n,) and bool((slot == -1).all())
+        assert not bool(occ.any()) and not bool(unres)
+        assert not bool(dk.any())
+
+
 @pytest.mark.parametrize("cap", [16, 6])
 def test_hash_probe_kernel_vs_plain(cuda, cap):
     """Negative keys at about 1.5 keys a bucket; at cap 6 a few buckets
@@ -515,6 +576,53 @@ def test_hash_probe32_kernel_vs_plain(cuda, cap):
     assert torch.equal(got, hp_ref.hash_probe32_ref(probe, bkeys, bvals))
 
 
+@pytest.mark.parametrize("cap", [1, 3, 6, 8, 16, 32, 64])
+def test_hash_probe32_designs_vs_plain(cuda, monkeypatch, cap):
+    """Both designs (the loop where C is a multiple of 4), each reading and
+    not reading the fill counts, given and not given, bit for bit against
+    the plain version; duplicate build keys, SENTINEL as a build key and as
+    a probe, rows equal to -1, buckets that overflowed.  Then a plane that
+    is not 16-byte aligned, which the plan sends to the scalar design."""
+    g = torch.Generator(device=cuda).manual_seed(cap)
+    m = 50_000
+    build = torch.randint(-2**31, 2**31 - 1, (m,), generator=g, device=cuda,
+                          dtype=torch.int32)
+    build[:100] = build[100:200]                       # duplicates
+    build[300] = hp.SENTINEL
+    rows = torch.randperm(m, generator=g, device=cuda).to(torch.int32)
+    rows[400:450] = -1
+    buckets = max(128, hp.next_pow2(2 * m) // max(cap, 4))
+    bkeys, bvals, fill, _ = hp._bucket_table(build, rows, buckets, cap)
+    probe = torch.cat([build[torch.randint(0, m, (200_000,), generator=g,
+                                           device=cuda)],
+                       torch.randint(-2**31, 2**31 - 1, (50_000,),
+                                     generator=g, device=cuda,
+                                     dtype=torch.int32),
+                       torch.full((7,), hp.SENTINEL, dtype=torch.int32,
+                                  device=cuda)])
+    want = hp_ref.hash_probe32_ref(probe, bkeys, bvals)
+    assert torch.equal(want, hp_ref.hash_probe32_ref(probe, bkeys, bvals,
+                                                     fill))
+    designs = ("scalar", "loop") if cap % 4 == 0 else ("scalar",)
+    plans = [hp.Probe32Plan(d, c) for d in designs for c in (True, False)]
+    for plan in plans:
+        for counts in (None, fill):
+            monkeypatch.setattr(hp, "probe32_plan",
+                                lambda cap, aligned=True, plan=plan: plan)
+            K.reset_launches()
+            got = hp.hash_probe32(probe, bkeys, bvals, counts)
+            torch.cuda.synchronize()
+            assert K.launches["hash_probe32"] == 1
+            assert torch.equal(got, want), (plan, counts is None)
+    monkeypatch.undo()
+    flat = torch.empty(2, buckets * cap + 1, dtype=torch.int32, device=cuda)
+    flat[0, 1:], flat[1, 1:] = bkeys.flatten(), bvals.flatten()
+    uk, uv = (flat[i, 1:].view(buckets, cap) for i in (0, 1))
+    assert uk.data_ptr() % 16 != 0
+    assert hp.probe32_plan(cap, False).design == "scalar"
+    assert torch.equal(hp.hash_probe32(probe, uk, uv, fill), want)
+
+
 def test_hash_join_probe_on_card(cuda):
     """The entry point on its default device: the launched kernel's rows
     equal the sorted-build oracle's once the capacity holds."""
@@ -527,7 +635,7 @@ def test_hash_join_probe_on_card(cuda):
                           dtype=torch.int32)
     K.reset_launches()
     got, cap = hp.hash_join_probe_auto(probe, build, rows)
-    assert got.device.type == "cuda" and K.launches["hash_probe32"] >= 1
+    assert got.device.type == "cuda" and K.launches["hash_probe32"] == 1
     assert torch.equal(got, hp_ref.hash_probe_ref(probe, build, rows))
 
 

@@ -5,7 +5,8 @@ The bucket-table build must equal the reference's bit for bit (keys, rows,
 overflow flag); ``hash_join_probe`` must equal the reference's (its Pallas
 kernel in interpret mode) and its sorted-build oracle ``hash_probe_ref``;
 ``hash_join_probe_auto`` must settle at the same capacity with the same
-rows.  The CUDA kernel is held bit for bit against the plain version on the
+rows, probing once.  The build's fill counts, which ``hash_join_probe``
+hands the probe, must not change an answer.  The CUDA kernel is held bit for bit against the plain version on the
 card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
 import numpy as np
@@ -110,3 +111,73 @@ def test_probe_rejects_mismatched_planes():
         hp.hash_probe32(torch.zeros(4, dtype=torch.int32),
                         torch.zeros((8, 4), dtype=torch.int32),
                         torch.zeros((8, 2), dtype=torch.int32))
+
+
+def test_auto_probes_once_at_the_cap_that_held(monkeypatch):
+    """20000 keys from cap 2 overflow at caps 2, 4 and 8 and hold at 16:
+    four builds, one probe, at the cap that held, with that build's fill
+    counts; the rows and cap are the reference's loop's."""
+    bkeys, bvals, pkeys = _case(20000, 3000, seed=20000)
+    for cap in (2, 4, 8):
+        assert bool(hp.hash_join_probe(pkeys, bkeys, bvals, cap=cap,
+                                       device="cpu")[1])
+    calls = []
+    probe32 = hp.hash_probe32
+
+    def counted(probe, bk, bv, counts=None):
+        calls.append((bk.shape[1], counts is not None))
+        return probe32(probe, bk, bv, counts)
+
+    monkeypatch.setattr(hp, "hash_probe32", counted)
+    got, cap = hp.hash_join_probe_auto(pkeys, bkeys, bvals, cap=2,
+                                       device="cpu")
+    assert cap == 16 and calls == [(16, True)]
+    want, want_cap = hp_ref.hash_join_probe_auto(
+        jnp.asarray(pkeys), jnp.asarray(bkeys), jnp.asarray(bvals), cap=2)
+    assert want_cap == cap
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("cap", [1, 3, 8, 16])
+def test_fill_counts_keep_sentinel_duplicates_and_minus_one_rows(cap):
+    """A probe of only the filled lanes gives the answer of all C lanes: a
+    key built twice returns its larger row, SENTINEL built as a key returns
+    its row, a SENTINEL probe of a bucket without it meets only empty lanes
+    (-1), a row of -1 stays -1; equal to the reference's probe."""
+    rng = np.random.default_rng(cap)
+    m = 600
+    bkeys = rng.integers(-2**31, 2**31 - 1, m).astype(np.int32)
+    bkeys[:20] = bkeys[20:40]                          # duplicates
+    bkeys[50] = hp.SENTINEL
+    bvals = rng.permutation(m).astype(np.int32)
+    bvals[60:70] = -1
+    pkeys = np.concatenate([rng.choice(bkeys, 900),
+                            np.full(3, hp.SENTINEL, np.int32),
+                            rng.integers(-2**31, 2**31 - 1, 300)]
+                           ).astype(np.int32)
+    buckets = max(128, hp.next_pow2(2 * m) // cap)
+    tk, tv, fill, _ = hp._bucket_table(torch.from_numpy(bkeys),
+                                       torch.from_numpy(bvals), buckets, cap)
+    probe = torch.from_numpy(pkeys)
+    got = hp.hash_probe32(probe, tk, tv, fill)
+    assert torch.equal(got, hp.hash_probe32(probe, tk, tv))
+    want, _ = hp_ref.hash_join_probe(jnp.asarray(pkeys), jnp.asarray(bkeys),
+                                     jnp.asarray(bvals), cap=cap)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    lanes = torch.arange(cap)
+    assert bool((tv[lanes >= fill[:, None]] == -1).all())
+    assert bool((tk[lanes >= fill[:, None]] == hp.SENTINEL).all())
+
+
+@pytest.mark.parametrize("cap,plan", [
+    (1, ("scalar", True)), (3, ("scalar", True)), (4, ("loop", False)),
+    (6, ("scalar", True)), (8, ("loop", False)), (16, ("loop", False)),
+    (20, ("loop", True)), (32, ("loop", True)), (64, ("loop", True)),
+    (260, ("loop", True))])
+def test_probe32_plan_is_chosen_by_cap(cap, plan):
+    """16-byte loads of the key row wherever C is a multiple of 4 and the
+    planes are 16-byte aligned, lane by lane elsewhere; the fill counts
+    read from C = 20 on (a key row longer than 64 bytes)."""
+    got = hp.probe32_plan(cap)
+    assert (got.design, got.counts) == plan
+    assert hp.probe32_plan(cap, aligned=False).design == "scalar"

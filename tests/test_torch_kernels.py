@@ -239,6 +239,48 @@ def test_dict_capacity_and_empty_input():
     assert slot.shape == (0,) and not bool(occ.any()) and not bool(unres)
 
 
+def test_insert_design_is_chosen_by_cap():
+    """The shared design up to 4096 slots (12 bytes a slot in a block's
+    48 KB of shared memory), the global one above."""
+    for cap in (16, 512, 1000, 4096):
+        assert hg.insert_design(cap) == "shared"
+    for cap in (4097, 8192, 1 << 20):
+        assert hg.insert_design(cap) == "global"
+
+
+@pytest.mark.parametrize("case", ["no_rows", "no_valid_rows", "negative",
+                                  "window_exhausted"])
+def test_build_group_dict_edge_cases_match_reference(case):
+    """No rows, no valid rows, negative keys down to INT64_MIN, and a probe
+    window too short for the keys (``rounds`` 2, so some valid row stays
+    unplaced and ``unresolved`` is set): slots, dictionary and flag equal
+    the reference's."""
+    rng = np.random.default_rng(7)
+    cap, rounds, n = 64, None, 400
+    pool = -rng.integers(1, 2**62, 20).astype(np.int64)
+    pool[0] = np.iinfo(np.int64).min
+    if case == "no_rows":
+        n = 0
+    elif case == "window_exhausted":
+        pool, rounds = rng.integers(-2**40, 2**40, 40).astype(np.int64), 2
+    keys = pool[rng.integers(0, pool.size, n)]
+    valid = rng.random(n) < (0.0 if case == "no_valid_rows" else 0.85)
+    rounds = rounds or hg.default_rounds(cap)
+    slot, dk, occ, unres = hg.build_group_dict(_t(keys), _t(valid), cap,
+                                               rounds)
+    if n == 0:              # the reference's gather refuses an empty input
+        assert slot.shape == (0,) and not bool(occ.any() | unres)
+        return
+    rslot, rdk, rocc, runres = hg_ref.hash_insert_ref(
+        jnp.asarray(keys), jnp.asarray(valid), cap, rounds)
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(rslot))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(rocc))
+    np.testing.assert_array_equal(dk.numpy()[occ.numpy()],
+                                  np.asarray(rdk)[np.asarray(rocc)])
+    assert bool(unres) == bool(runres) == (case == "window_exhausted")
+    assert bool(unres) == bool((valid & (slot.numpy() < 0)).any())
+
+
 # ---------------------------------------------------------------------------
 # hash_probe
 # ---------------------------------------------------------------------------

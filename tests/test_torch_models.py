@@ -10,6 +10,10 @@ d 128 in float32, summed in another order by each framework.  Greedy token
 ids must be equal.
 """
 import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -229,3 +233,20 @@ def test_serve_cli_on_cpu(capsys):
                          "--device", "cpu"])
     assert gen.tokens.shape == (2, 4)
     assert "gemma-7b (reduced)" in capsys.readouterr().out
+
+
+def test_first_forward_of_a_fresh_process_equals_the_second():
+    """Fault C4 (ROADMAP): a fresh process builds the card test's reduced
+    model (group 2, float32) on the CPU and runs forward three times; the
+    first must equal the second and the third bit for bit, at every
+    recorded step.  ``tools/cpu_first_forward.py`` runs the same child in
+    many processes."""
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, str(root / "tools" / "cpu_first_forward.py"),
+         "--child", "--src", str(root / "src")], capture_output=True,
+        text=True, check=True, timeout=600).stdout.strip().splitlines()[-1]
+    res = json.loads(out)
+    assert res["first_parting"] is None, res
+    assert res["max_abs"] == 0.0 and res["later_equal"]
+    assert res["query_product"]["equal"]
