@@ -20,13 +20,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      at 1.5 M rows into 512 slots (40 keys, and Q13's own SF 10 keys) and
      into 8192 slots (3000 keys), in both designs, against the plain
      version; the 64-bit hash probe's build, probe and both timed, beside
-     the sorted index over the same keys; the partition histogram over SF
-     10's l_orderkey, exact; then ``skew_stats`` of SF 10's l_partkey over
-     8 partitions, the path that launches the histogram;
+     the sorted index over the same keys; through
+     ``tools/time_radix_hist.py``, the partition histogram over SF 10's
+     l_orderkey into 8 partitions, hashed and not, exact and
+     byte-identical across runs; then ``skew_stats`` of SF 10's l_partkey
+     over 8 partitions, the path that launches the histogram (once);
   4. the main path: all 22 TPC-H queries at SF 1 through
      ``repro_torch.core.backend.run_local`` under both join methods, checked
      against the port's NumPy reference (row counts equal, rtol 1e-7), with
-     the kernels' launch counters reset just before and read just after;
+     the kernels' launch counters reset just before and read just after,
+     and each query's sorts counted (``core/sortcount.SortCounter``),
+     printed per join method and held to the planner-off budget of
+     ``sortcount.MAX_SORTS``;
   5. all 22 queries at SF 10 (60 M lineitem rows resident on the card),
      under each join method one warm-up and the median of 3 timed runs per
      query, peak device memory, and each query's device busy time from one
@@ -331,37 +336,30 @@ def check_hash_insert(dev, db) -> dict:
 
 def check_radix_hist(dev, db) -> dict:
     """Per-block histograms of SF 10's l_orderkey (int32), 8 partitions,
-    blocks of 2048 rows, hashed and not; exact against the plain version."""
+    blocks of 2048 rows, hashed and not, through
+    ``tools/time_radix_hist.py``: exact against the plain version and
+    byte-identical across two runs, timed beside the plain version,
+    ``bincount`` over ids binned beforehand and the bound, with the plan
+    ``hist_plan`` made.  Returns the hashed case's entry."""
     import torch
-    from repro_torch.kernels.radix_hist import ops, ref
+    sys.path.insert(0, str(ROOT / "tools"))
+    from time_radix_hist import time_hist
     keys = torch.from_numpy(
         db.tables["lineitem"]["l_orderkey"].astype("int32")).to(dev)
-    n, parts, blk = keys.shape[0], 8, 2048
     entry = None
     for hashed in (True, False):
-        got = ops.radix_hist(keys, parts, blk=blk, hashed=hashed)
-        want = ref.radix_hist_plain(keys, parts, blk, hashed=hashed)
-        if not torch.equal(got, want):
-            raise AssertionError(f"radix_hist hashed={hashed} differs from "
-                                 f"plain")
-        nb = got.shape[0]
-        ms = time_ms(lambda: ops.radix_hist(keys, parts, blk=blk,
-                                            hashed=hashed))
-        plain = time_ms(lambda: ref.radix_hist_plain(keys, parts, blk,
-                                                     hashed=hashed))
-        flat = (torch.arange(n, device=dev) // blk) * parts + \
-            ref.bin_of(keys, parts, hashed)
-        lib = time_ms(lambda: torch.bincount(flat, minlength=nb * parts))
-        nbytes = n * 4 + nb * parts * 4
-        log(f"radix_hist   n={n} parts={parts} blk={blk} hashed={hashed}: "
-            f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bincount (binned "
-            f"beforehand) {lib:.3f} ms, bound {bound(nbytes)[0]:.3f} ms; "
-            f"exact")
+        r = time_hist(dev, keys, 8, hashed, plain=True)
+        log(f"radix_hist   n={r['n']} parts=8 blk={r['blk']} "
+            f"hashed={hashed} (plan {json.dumps(r['plan'])}): kernel "
+            f"{r['ms']:.3f} ms (device {r['device_ms']:.3f} ms), plain "
+            f"{r['plain_ms']:.3f} ms, bincount (binned beforehand) "
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms; exact, "
+            f"byte-identical across runs")
         if hashed:
             entry = kernel_entry(
                 "radix_hist", "src/repro_torch/kernels/csrc/radix_hist.cu",
-                "src/repro/kernels/radix_hist/kernel.py:59", ms, plain, lib,
-                0.0, nbytes)
+                "src/repro/kernels/radix_hist/kernel.py:59", r["ms"],
+                r["plain_ms"], r["library_ms"], 0.0, r["bytes"])
     return entry
 
 
@@ -384,8 +382,9 @@ def run_skew_path(dev, db) -> dict[str, int]:
     log(f"skew_stats SF {SF_TIMED} l_partkey, 8 partitions: per partition "
         f"{[int(x) for x in per]}, max/mean {float(st['imbalance']):.6f}; "
         f"launches {json.dumps(counts)}")
-    if counts["radix_hist"] <= 0:
-        raise AssertionError("skew_stats did not launch radix_hist")
+    if counts["radix_hist"] != 1:
+        raise AssertionError(f"skew_stats launched radix_hist "
+                             f"{counts['radix_hist']} times, not once")
     return counts
 
 
@@ -473,6 +472,7 @@ def run_main_path(dev):
     reference's results on it."""
     from repro_torch import kernels as K
     from repro_torch.core import backend as B
+    from repro_torch.core.sortcount import LEGS, MAX_SORTS, SortCounter
     from repro_torch.data import tpch
     from repro_torch.queries import QUERIES
     t0 = time.perf_counter()
@@ -485,11 +485,24 @@ def run_main_path(dev):
     K.reset_launches()
     for jm in ("sorted", "hash"):
         t3 = time.perf_counter()
+        sorts = {}
         for q in sorted(QUERIES):
-            got, _ = B.run_local(QUERIES[q], db, join_method=jm, device=dev)
+            with SortCounter() as c:
+                got, _ = B.run_local(QUERIES[q], db, join_method=jm,
+                                     device=dev)
+            sorts[q] = len(c.calls)
             compare(got, refs[q], f"SF {SF_MAIN} q{q} join={jm}")
         log(f"SF {SF_MAIN}: 22 queries join={jm} equal the reference "
             f"({time.perf_counter() - t3:.1f} s with the first upload)")
+        log(f"SF {SF_MAIN} join={jm} sorts per query (planner on): "
+            f"{json.dumps(sorts)}, total {sum(sorts.values())}")
+        # SF 1 may prove other key widths than sf 0.005's budgets, so only
+        # the planner-off budget bounds the planner-on count here
+        off = LEGS.index((jm, False))
+        over = {q: n for q, n in sorts.items() if n > MAX_SORTS[q][off]}
+        if over:
+            raise AssertionError(f"join={jm}: planner-on sorts above the "
+                                 f"planner-off budget: {over}")
     counts = dict(K.launches)
     log(f"launches on the main path (SF {SF_MAIN}, 22 queries x 2 joins): "
         f"{json.dumps(counts)}")

@@ -11,15 +11,40 @@
 //                         a SEQUENTIAL grid carries in VMEM.
 //
 // Bound on an H100: bytes.  Both read int32 keys once and do a few integer
-// operations per key.  radix_hist writes only (n / blk) x parts floats, so
-// it is ~4 bytes a row; counting_rank writes a 4-byte slot per row, 8 bytes
-// a row.  At 15 M rows (one rank's SF 10 lineitem share at N = 4) the rank
-// is 0.036 ms at 3.35 TB/s; at 1.5 M rows (SF 1) a launch costs more than
-// the bytes.
+// operations per key.  radix_hist writes (n / blk) x parts floats, so it
+// moves n * 4 + nb * parts * 4 bytes: at SF 10's 60 M rows, parts 8 and
+// blk 2048, 0.072 ms at 3.35 TB/s; counting_rank writes a 4-byte slot per
+// row, 8 bytes a row.  At 15 M rows (one rank's SF 10 lineitem share at
+// N = 4) the rank is 0.036 ms at 3.35 TB/s; at 1.5 M rows (SF 1) a launch
+// costs more than the bytes.
 //
-// Design.  Hopper blocks run in no order, so nothing carries across them.
-// The counting rank has two designs (ops.rank_design picks by width, the
-// caller's parts + 1):
+// Design of the histogram (hist_kernel; ops.hist_plan picks the load width,
+// the grid and the shared memory).  What kept the first port at 42 % of its
+// bound was a chain per row: one 4-byte load, then a __match_any_sync, then a
+// shared atomic by the peer group's leader, before the next load went out,
+// so too few bytes were in flight; and __match_any_sync costs more as a warp
+// holds more distinct bins.  Now:
+//  * a persistent grid (8 blocks an SM, 32 registers a thread) walks
+//    histogram blocks in chunks of 2048 rows; each thread reads its 8 keys
+//    of a chunk as two 16-byte loads (lane by lane where the keys are not
+//    16-byte aligned or blk % 4 != 0) and issues the next chunk's loads
+//    before it counts the current one;
+//  * a bin is the (murmur32-hashed) key masked where parts is a power of
+//    two, else reduced by a multiply-high modulo (FastMod) in place of `%`
+//    by a run-time divisor;
+//  * each row is one native 32-bit atomicAdd into the block's one copy of
+//    the histogram in shared memory (parts ints, up to 12288), written out
+//    and reset once per histogram block.
+// Measured against two other designs at every width from 8 to 4096 bins
+// (PERF.md, PR 17): ballots of the bin's bits with a bin a lane (parts <=
+// 32; 1.5x slower: the ballots cost more instructions than one atomic),
+// and a copy per warp (a little slower to 129 bins, 2x at 4096, where
+// shared memory holds fewer blocks).  A hot bin costs what a uniform spread
+// does.
+//
+// Design of the rank.  Hopper blocks run in no order, so nothing carries
+// across them.  The counting rank has two designs (ops.rank_design picks by
+// width, the caller's parts + 1):
 //  * single pass (width <= 32, the shuffle's N + 2 bins): decoupled
 //    look-back, the scheme of CUB's onesweep radix sort; one memset of the
 //    look-back words and one launch, keys read once (8 bytes a row).
@@ -52,11 +77,8 @@
 //     - slot = tile prefix + earlier warps' count + rank in the warp, written
 //       once; the last tile writes the totals.
 //  * three passes (wider): per-tile histograms, a scan per bin, then ranks.
-//    1. hist_kernel: the histogram of each tile of `tile` rows (the same
-//       kernel body as radix_hist, unhashed, with int32 counts).  Lanes of a
-//       warp that hold one key are found with __match_any_sync, and their
-//       leader adds the group's size to a shared-memory counter: one shared
-//       atomic per distinct key per warp.
+//    1. hist_kernel: the histogram of each tile of `tile` rows (radix_hist,
+//       unhashed, with int32 counts).
 //    2. scan_kernel: per key, an exclusive prefix sum of the tile counts in
 //       tile order (one block per key, warp-shuffle scans), in place; the
 //       key's total lands in `totals`.
@@ -86,6 +108,9 @@ constexpr int kOnePassWidthMax = 32;                     // one bin a lane
 constexpr int kOnePassBlocks = 132 * 4;                  // 4 blocks an H100 SM
 constexpr unsigned long long kAggregate = 1ull << 32;    // status of a word
 constexpr unsigned long long kPrefix = 2ull << 32;
+constexpr int kHistLoads = 2;                            // 16-byte loads a thread a chunk
+constexpr int kHistKeys = 4 * kHistLoads;                // keys a thread a chunk
+constexpr int kHistChunk = kThreads * kHistKeys;         // 2048 rows a chunk
 
 __device__ __forceinline__ unsigned bin_of(int32_t key, unsigned width,
                                            bool hashed) {
@@ -93,30 +118,128 @@ __device__ __forceinline__ unsigned bin_of(int32_t key, unsigned width,
   return (hashed ? murmur32(u) : u) % width;
 }
 
-// Histogram of rows [b * blk, min(n, (b + 1) * blk)) for block b, written
-// as out[b * width + p].  Rows past n are never read: the reference pads
-// with the first key and subtracts the pad, which leaves the same counts.
-template <typename Out>
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const int32_t* __restrict__ keys, long long n, long long blk,
-            int width, bool hashed, Out* __restrict__ out) {
-  extern __shared__ int cnt[];
-  for (int p = threadIdx.x; p < width; p += kThreads) cnt[p] = 0;
-  __syncthreads();
-  const long long start = static_cast<long long>(blockIdx.x) * blk;
-  const long long end = min(n, start + blk);
-  const unsigned lane = threadIdx.x & 31u;
-  for (long long base = start; base < end; base += kThreads) {
-    const long long r = base + threadIdx.x;
-    const unsigned b = r < end ? bin_of(keys[r], width, hashed) : kNoBin;
-    const unsigned peers = __match_any_sync(kFullMask, b);
-    if (b != kNoBin && lane == static_cast<unsigned>(__ffs(peers) - 1))
-      atomicAdd(&cnt[b], __popc(peers));
+// x % d for any 32-bit x, by a multiply-high and shifts (Granlund and
+// Montgomery 1994, fig. 4.1): ~6 instructions, where `%` by a divisor known
+// only at run time takes ~20.
+struct FastMod {
+  unsigned d, m;
+  int s1, s2;
+};
+
+static FastMod make_fastmod(unsigned d) {
+  int l = 0;                                  // ceil(log2 d)
+  while ((1ull << l) < d) ++l;
+  FastMod f;
+  f.d = d;
+  f.m = static_cast<unsigned>(((1ull << 32) * ((1ull << l) - d)) / d + 1);
+  f.s1 = l < 1 ? l : 1;
+  f.s2 = l > 1 ? l - 1 : 0;
+  return f;
+}
+
+__device__ __forceinline__ unsigned mod_of(unsigned x, const FastMod& f) {
+  const unsigned t = __umulhi(f.m, x);
+  return x - ((t + ((x - t) >> f.s1)) >> f.s2) * f.d;
+}
+
+// Keys of this thread's rows of the chunk at row0: rows
+// row0 + 4 * (u * kThreads + threadIdx.x) + e, e < 4, one 16-byte load per u
+// where `vec` (keys 16-byte aligned, row0 % 4 == 0) and all four rows are
+// before `end`, else lane by lane.  A row at or past `end` reads as 0.
+__device__ __forceinline__ void load_keys(const int32_t* __restrict__ keys,
+                                          long long row0, long long end,
+                                          bool vec, unsigned (&k)[kHistKeys]) {
+#pragma unroll
+  for (int u = 0; u < kHistLoads; ++u) {
+    const long long r = row0 + 4ll * (u * kThreads + threadIdx.x);
+    if (vec && r + 4 <= end) {
+      const int4 v = __ldcs(reinterpret_cast<const int4*>(keys + r));
+      k[4 * u] = v.x;
+      k[4 * u + 1] = v.y;
+      k[4 * u + 2] = v.z;
+      k[4 * u + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) k[4 * u + e] = r + e < end ? __ldcs(keys + r + e) : 0;
+    }
   }
+}
+
+// Count one chunk's keys of this thread into the block's histogram `hist`.
+// Key s counts when WHOLE (every row of the chunk is before the end) or its
+// row offset is below `lim`.  POW2: parts is a power of two, and the bin is
+// a mask of the (hashed) key.
+template <bool HASHED, bool WHOLE, bool POW2>
+__device__ __forceinline__ void bin_chunk(const unsigned (&k)[kHistKeys], long long lim,
+                                          const FastMod& mod, int* hist) {
+#pragma unroll
+  for (int s = 0; s < kHistKeys; ++s) {
+    const unsigned h = HASHED ? murmur32(k[s]) : k[s];
+    const unsigned bin = POW2 ? h & (mod.d - 1) : mod_of(h, mod);
+    if (WHOLE || (s / 4) * 4 * kThreads + s % 4 < lim) atomicAdd(hist + bin, 1);
+  }
+}
+
+// Per-block histograms of rows [b * blk, min(n, (b + 1) * blk)), written as
+// out[b * parts + p], on a persistent grid: block i takes histogram blocks
+// i, i + gridDim.x, ... in chunks of kHistChunk rows, and loads its next
+// chunk into registers before it counts the current one, each row with one
+// native 32-bit atomicAdd into the block's copy of the histogram in shared
+// memory.  Rows past n are never read (the reference pads with the first
+// key and subtracts the pad, which leaves the same counts).
+template <typename Out, bool POW2>
+__global__ void __launch_bounds__(kThreads, 8)
+hist_kernel(const int32_t* __restrict__ keys, long long n, long long blk,
+            int parts, bool hashed, bool vec, FastMod mod,
+            Out* __restrict__ out) {
+  extern __shared__ int hist[];            // (parts,) counts of block b
+  const long long nb = (n + blk - 1) / blk;
+  const long long chunks = (blk + kHistChunk - 1) / kHistChunk;   // a block's
+  for (int p = threadIdx.x; p < parts; p += kThreads) hist[p] = 0;
   __syncthreads();
-  Out* row = out + static_cast<long long>(blockIdx.x) * width;
-  for (int p = threadIdx.x; p < width; p += kThreads)
-    row[p] = static_cast<Out>(cnt[p]);
+  long long b = blockIdx.x, c = 0;
+  if (b >= nb) return;
+  long long row0 = b * blk;
+  long long end = min(n, min((b + 1) * blk, row0 + kHistChunk));
+  unsigned cur[kHistKeys], nxt[kHistKeys];
+  load_keys(keys, row0, end, vec, cur);
+  for (;;) {
+    long long b2 = b, c2 = c + 1;
+    if (c2 == chunks) {
+      c2 = 0;
+      b2 = b + gridDim.x;
+    }
+    const bool more = b2 < nb;
+    const long long row2 = b2 * blk + c2 * kHistChunk;
+    const long long end2 = min(n, min((b2 + 1) * blk, row2 + kHistChunk));
+    if (more) load_keys(keys, row2, end2, vec, nxt);    // in flight while counting
+    // rows of this thread's keys before `end`: key s is row
+    // row0 + 4 * threadIdx.x + (s / 4) * 4 * kThreads + s % 4
+    const long long lim = end - row0 - 4ll * threadIdx.x;
+    if (end - row0 == kHistChunk) {
+      if (hashed) bin_chunk<true, true, POW2>(cur, lim, mod, hist);
+      else bin_chunk<false, true, POW2>(cur, lim, mod, hist);
+    } else {
+      if (hashed) bin_chunk<true, false, POW2>(cur, lim, mod, hist);
+      else bin_chunk<false, false, POW2>(cur, lim, mod, hist);
+    }
+    if (c == chunks - 1) {     // block b's last chunk: write its row, reset
+      __syncthreads();
+      Out* row = out + b * parts;
+      for (int p = threadIdx.x; p < parts; p += kThreads) {
+        row[p] = static_cast<Out>(hist[p]);
+        hist[p] = 0;
+      }
+      __syncthreads();
+    }
+    if (!more) break;
+    b = b2;
+    c = c2;
+    row0 = row2;
+    end = end2;
+#pragma unroll
+    for (int s = 0; s < kHistKeys; ++s) cur[s] = nxt[s];
+  }
 }
 
 // Exclusive scan down column `blockIdx.x` of the (ntiles, width) counts, in
@@ -375,25 +498,49 @@ rank_onepass_kernel(const int32_t* __restrict__ keys, long long n, int width,
 
 }  // namespace
 
-// keys (n,) int32 -> out (ceil(n / blk), parts) float32 histograms.
-REPRO_EXPORT int radix_hist(const void* keys, long long n, long long blk,
-                            int parts, int hashed, void* out, void* stream) {
-  if (n == 0) return cudaSuccess;
-  const long long blocks = (n + blk - 1) / blk;
-  hist_kernel<float><<<static_cast<unsigned>(blocks), kThreads,
-                       parts * sizeof(int),
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(keys), n, blk, parts, hashed != 0,
-      static_cast<float*>(out));
+template <typename Out>
+static cudaError_t launch_hist(const int32_t* keys, long long n, long long blk,
+                               int parts, bool hashed, bool vec, int grid,
+                               int smem, Out* out, cudaStream_t s) {
+  const bool pow2 = (parts & (parts - 1)) == 0;
+  auto kernel = pow2 ? &hist_kernel<Out, true> : &hist_kernel<Out, false>;
+  if (grid < 1 || smem < static_cast<long long>(parts) * sizeof(int))
+    return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, s>>>(
+      keys, n, blk, parts, hashed, vec, make_fastmod(parts), out);
   return cudaGetLastError();
 }
 
-// Three-pass counting rank, any width: keys (n,) int32 -> slot (n,) int32
-// and totals (width,) int32, where width is the caller's parts + 1 (the reference's reserved padding bin).  The
-// caller picks the rows per tile, `tile`, and sizes `counts`, the
-// (ceil(n / tile), width) int32 scratch.  The rank pass takes
-// (kWarps + 1) * width ints of shared memory, so width <= 6456; the wrapper
-// allows parts <= 4096.
+// keys (n,) int32 -> out (ceil(n / blk), parts) histograms, float32 (or
+// int32 where `int_out`: pass 1 of the three-pass counting rank).  The
+// caller's plan (radix_hist/ops.py::hist_plan) gives `vec` (16-byte loads:
+// keys 16-byte aligned and blk % 4 == 0), the persistent grid and the
+// dynamic shared memory of a block.
+REPRO_EXPORT int radix_hist(const void* keys, long long n, long long blk,
+                            int parts, int hashed, int vec, int grid, int smem,
+                            int int_out, void* out, void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (parts < 1 || blk < 1) return cudaErrorInvalidValue;
+  const auto* k = static_cast<const int32_t*>(keys);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int_out ? launch_hist(k, n, blk, parts, hashed != 0, vec != 0, grid,
+                               smem, static_cast<int32_t*>(out), s)
+                 : launch_hist(k, n, blk, parts, hashed != 0, vec != 0, grid,
+                               smem, static_cast<float*>(out), s);
+}
+
+// Passes 2 and 3 of the three-pass counting rank, any width: keys (n,) int32
+// -> slot (n,) int32 and totals (width,) int32, where width is the caller's
+// parts + 1 (the reference's reserved padding bin).  `counts` holds pass 1,
+// the (ceil(n / tile), width) int32 histograms of the keys' tiles of `tile`
+// rows, unhashed (radix_hist with int_out), and is scanned in place.  The
+// rank pass takes (kWarps + 1) * width ints of shared memory, so
+// width <= 6456; the wrapper allows parts <= 4096.
 REPRO_EXPORT int counting_rank(const void* keys, long long n, long long tile,
                                int width, void* counts, void* totals,
                                void* slot, void* stream) {
@@ -404,14 +551,6 @@ REPRO_EXPORT int counting_rank(const void* keys, long long n, long long tile,
       rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(rank_smem));
   if (err != cudaSuccess) return err;
-  if (tiles > 0) {
-    hist_kernel<int32_t><<<static_cast<unsigned>(tiles), kThreads,
-                           width * sizeof(int), s>>>(
-        static_cast<const int32_t*>(keys), n, tile, width, false,
-        static_cast<int32_t*>(counts));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
   scan_kernel<<<width, kThreads, 0, s>>>(static_cast<int32_t*>(counts), tiles,
                                          width, static_cast<int32_t*>(totals));
   err = cudaGetLastError();

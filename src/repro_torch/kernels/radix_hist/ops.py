@@ -14,20 +14,21 @@ those of ``repro.kernels.radix_hist.ops``:
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch import kernels as K
 from .ref import counting_rank_ref, radix_hist_plain
 
-__all__ = ["radix_hist", "counting_rank", "skew_stats", "rank_design",
-           "rank_scratch", "RADIX_HIST_PARTS_MAX", "COUNTING_RANK_PARTS_MAX",
-           "ONEPASS_WIDTH_MAX"]
+__all__ = ["radix_hist", "counting_rank", "skew_stats", "hist_plan",
+           "HistPlan", "rank_design", "rank_scratch", "RADIX_HIST_PARTS_MAX",
+           "COUNTING_RANK_PARTS_MAX", "ONEPASS_WIDTH_MAX"]
 
 _c = ctypes.c_void_p
 _ll = ctypes.c_longlong
 _i = ctypes.c_int
-_SIGNATURES = {"radix_hist": [_c, _ll, _ll, _i, _i, _c, _c],
+_SIGNATURES = {"radix_hist": [_c, _ll, _ll, _i, _i, _i, _i, _i, _i, _c, _c],
                "counting_rank": [_c, _ll, _ll, _i, _c, _c, _c, _c],
                "counting_rank_onepass": [_c, _ll, _i, _c, _c, _c, _c]}
 
@@ -42,6 +43,53 @@ _RANK_TILE = 4096
 # N + 2 for N <= 30); tiles of 4096 rows (csrc kOnePassTile)
 ONEPASS_WIDTH_MAX = 32
 _ONEPASS_TILE = 4096
+
+
+# the histogram's geometry (csrc hist_kernel): at most 8 blocks an SM (its
+# launch bounds), on the 132 SMs of an H100 SXM
+_HIST_BLOCKS_SM = 8
+_SMS = 132
+_SMEM_SM = 233_472              # shared memory of one SM, 1 KB a block reserved
+
+
+class HistPlan(NamedTuple):
+    """Geometry of one partition histogram (csrc/radix_hist.cu hist_kernel)."""
+    vector: bool      # 16-byte key loads; else lane by lane
+    nblocks: int      # the persistent grid
+    smem: int         # dynamic shared memory of a block, bytes (the launch's)
+
+
+def hist_plan(n: int, parts: int, blk: int, aligned: bool = True
+              ) -> HistPlan:
+    """The histogram of ``n`` keys into ``parts`` bins per block of ``blk``
+    rows: one copy of the histogram a block in shared memory (``parts``
+    ints).  Keys load 16 bytes at a time where they are 16-byte ``aligned``
+    and ``blk % 4 == 0`` (every chunk then starts on a 16-byte boundary),
+    else lane by lane.  The grid is persistent: at most 8 blocks an SM,
+    fewer where shared memory holds fewer, and no more blocks than
+    histogram blocks."""
+    if not 1 <= parts <= RADIX_HIST_PARTS_MAX:
+        raise ValueError(f"radix_hist: parts must be in [1, "
+                         f"{RADIX_HIST_PARTS_MAX}], got {parts}")
+    smem = parts * 4
+    per_sm = min(_HIST_BLOCKS_SM, _SMEM_SM // (smem + 1024))
+    nblocks = max(1, min(-(-n // blk), _SMS * per_sm))
+    return HistPlan(aligned and blk % 4 == 0, nblocks, smem)
+
+
+def _hist(k: torch.Tensor, parts: int, blk: int, hashed: bool,
+          out: torch.Tensor) -> None:
+    """Launch the histogram of the contiguous int32 keys ``k`` into ``out``
+    ((ceil(n / blk), parts), float32 or int32) on ``k``'s stream."""
+    n = k.shape[0]
+    plan = hist_plan(n, parts, blk, k.data_ptr() % 16 == 0)
+    lib = K.load("radix_hist", _SIGNATURES)
+    with torch.cuda.device(k.device):
+        rc = lib.radix_hist(K.ptr(k), n, blk, parts, int(hashed),
+                            int(plan.vector), plan.nblocks, plan.smem,
+                            int(out.dtype == torch.int32), K.ptr(out),
+                            K.stream_of(k))
+    K.check(lib, rc, "radix_hist")
 
 
 def rank_design(width: int) -> str:
@@ -91,11 +139,7 @@ def radix_hist(keys: torch.Tensor, parts: int, blk: int = 2048,
                       device=k.device)
     if n == 0:
         return out
-    lib = K.load("radix_hist", _SIGNATURES)
-    with torch.cuda.device(k.device):
-        rc = lib.radix_hist(K.ptr(k), n, blk, parts, int(hashed), K.ptr(out),
-                            K.stream_of(k))
-    K.check(lib, rc, "radix_hist")
+    _hist(k, parts, blk, hashed, out)
     K.count_launch("radix_hist")
     return out
 
@@ -129,6 +173,9 @@ def counting_rank(keys: torch.Tensor, parts: int
                                            K.ptr(totals), K.ptr(slot),
                                            K.stream_of(k))
         else:
+            # pass 1, the tiles' histograms, is the partition histogram's
+            # kernel; passes 2 and 3 scan them and rank
+            _hist(k, width, _RANK_TILE, False, scratch.view(-1, width))
             rc = lib.counting_rank(K.ptr(k), n, _RANK_TILE, width,
                                    K.ptr(scratch), K.ptr(totals), K.ptr(slot),
                                    K.stream_of(k))

@@ -18,6 +18,7 @@ from repro_torch import kernels as K
 from repro_torch.core import backend as B
 from repro_torch.core import relational as rel
 from repro_torch.configs import get_config
+from repro_torch.core.sortcount import LEGS, MAX_SORTS, SortCounter
 from repro_torch.core.table import from_numpy
 from repro_torch.data import tpch
 from repro_torch.kernels.flash_attention import ops as fa
@@ -300,6 +301,24 @@ def test_queries_on_card_launch_every_kernel(cuda):
     assert all(K.launches[k] > 0 for k in local), K.launches
 
 
+def test_sort_counts_on_card_equal_the_cpu_counts(cuda):
+    """The 22 local plans at sf 0.005, sorted joins, planner on: the card
+    takes exactly the sorts the CPU path takes (the kernels sort nothing),
+    and those are the budgets of ``sortcount.MAX_SORTS``."""
+    db = tpch.generate(0.005, seed=11)
+    counts = {}
+    for dev in ("cpu", cuda):
+        for qid in sorted(QUERIES):
+            with SortCounter() as c:
+                B.run_local(QUERIES[qid].with_inference(True), db,
+                            join_method="sorted", device=dev)
+            counts.setdefault(qid, []).append(len(c.calls))
+    assert all(cpu == card for cpu, card in counts.values()), counts
+    on = LEGS.index(("sorted", True))
+    assert {q: c[0] for q, c in counts.items()} == \
+        {q: b[on] for q, b in MAX_SORTS.items()}
+
+
 @pytest.mark.parametrize("n", [1, 4095, 4096, 300_001])
 @pytest.mark.parametrize("parts", [5, 9, 129, 4096])
 def test_counting_rank_kernel_vs_plain(cuda, n, parts):
@@ -336,6 +355,19 @@ def test_counting_rank_exact_on_both_sides_of_the_single_pass_width(
         ("single_pass" if single else "three_pass")
 
 
+@pytest.mark.parametrize("parts", [63, 129])
+def test_counting_rank_three_pass_on_misaligned_keys(cuda, parts):
+    """keys[1:] is not 16-byte aligned: the tiles' histograms (pass 1, the
+    partition histogram's kernel) load it lane by lane."""
+    g = torch.Generator(device=cuda).manual_seed(parts)
+    keys = torch.randint(0, parts, (1_000_004,), generator=g, device=cuda,
+                         dtype=torch.int32)[1:]
+    slot, counts = rh.counting_rank(keys, parts)
+    want_slot, want_counts = rh_ref.counting_rank_ref(keys, parts)
+    assert torch.equal(slot, want_slot)
+    assert torch.equal(counts, want_counts)
+
+
 @pytest.mark.parametrize("parts", [5, 9, 63])
 def test_counting_rank_repeated_and_on_two_streams(cuda, parts):
     """Back-to-back calls, and calls on two streams at once, each give the
@@ -362,16 +394,51 @@ def test_counting_rank_repeated_and_on_two_streams(cuda, parts):
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2048, 300_001])
-@pytest.mark.parametrize("parts", [8, 129])
+@pytest.mark.parametrize("n", [1, 3, 2047, 2048, 2049, 300_001])
+@pytest.mark.parametrize("parts", [1, 8, 31, 32, 33, 64, 129, 12288])
 @pytest.mark.parametrize("hashed", [True, False])
 def test_radix_hist_kernel_vs_plain(cuda, n, parts, hashed):
+    """Widths that are powers of two (the bin a mask) and not (the
+    multiply-high modulo), on both sides of 32 and up to the width limit:
+    exact, and the same bytes twice."""
     g = torch.Generator(device=cuda).manual_seed(n)
     keys = torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=cuda,
                          dtype=torch.int32)
     got = rh.radix_hist(keys, parts, hashed=hashed)
     want = rh.radix_hist(keys.cpu(), parts, hashed=hashed)
     assert torch.equal(got.cpu(), want)
+    assert torch.equal(rh.radix_hist(keys, parts, hashed=hashed), got)
+
+
+@pytest.mark.parametrize("blk", [8, 100, 102, 2048, 5000])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("parts", [8, 64])
+def test_radix_hist_blocks_and_misaligned_keys(cuda, blk, offset, parts):
+    """Blocks smaller than, not a multiple of 4 and larger than a chunk of
+    2048 rows, and keys[1:] (not 16-byte aligned: loaded lane by lane)."""
+    g = torch.Generator(device=cuda).manual_seed(blk + offset)
+    base = torch.randint(-2**31, 2**31 - 1, (300_002,), generator=g,
+                         device=cuda, dtype=torch.int32)
+    keys = base[offset:offset + 300_001]
+    assert rh.hist_plan(keys.shape[0], parts, blk,
+                        keys.data_ptr() % 16 == 0).vector == \
+        (offset == 0 and blk % 4 == 0)
+    for hashed in (True, False):
+        got = rh.radix_hist(keys, parts, blk=blk, hashed=hashed)
+        want = rh_ref.radix_hist_plain(keys.cpu(), parts, blk, hashed=hashed)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("parts", [8, 64, 4096])
+def test_radix_hist_one_hot_bin(cuda, parts):
+    """Every key in one bin: the count of each block lands in one column."""
+    keys = torch.full((1_000_003,), 12345, dtype=torch.int32, device=cuda)
+    for hashed in (True, False):
+        got = rh.radix_hist(keys, parts, hashed=hashed)
+        want = rh_ref.radix_hist_plain(keys.cpu(), parts, 2048,
+                                       hashed=hashed)
+        assert torch.equal(got.cpu(), want)
+        assert int((got.sum(dim=0) > 0).sum()) == 1
 
 
 @pytest.mark.parametrize("qid", [3, 10])

@@ -1,5 +1,6 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` never
-import ``jax`` or anything of the reference package ``repro``."""
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+port's timing tools (``tools/time_*.py``) never import ``jax`` or anything
+of the reference package ``repro``."""
 import os
 import re
 import subprocess
@@ -58,7 +59,7 @@ print("ok")
 
 def test_sources_import_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("time_*.py"))
     assert len(files) > 15
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _FORBIDDEN.finditer(f.read_text())]

@@ -166,3 +166,40 @@ def test_rank_design_and_scratch(n, width, design, size):
     assert P.rank_design(width) == design
     want_dtype = torch.int64 if design == "single_pass" else torch.int32
     assert P.rank_scratch(n, width) == (size, want_dtype)
+
+
+@pytest.mark.parametrize("parts,per_sm", [
+    (1, 8), (8, 8), (32, 8), (33, 8), (64, 8), (4096, 8),
+    (8192, 6), (12288, 4),       # 32 KB and 48 KB a block, + 1 KB each
+])
+def test_hist_plan_per_width(parts, per_sm):
+    """One copy of the histogram a block, ``parts`` ints of shared memory
+    (what the launch gets), up to 12288 bins; at SF 10's 60 M rows the grid
+    is persistent, 8 blocks an SM while their shared memory fits."""
+    plan = P.hist_plan(60_000_000, parts, 2048)
+    assert plan == P.HistPlan(vector=True, nblocks=per_sm * 132,
+                              smem=parts * 4)
+    assert plan.smem + 1024 <= 232_448
+
+
+@pytest.mark.parametrize("blk,aligned,vector", [
+    (2048, True, True), (2048, False, False),      # keys[1:] of an int32 tensor
+    (8, True, True), (100, True, True), (102, True, False), (2047, True, False),
+])
+def test_hist_plan_loads_lane_by_lane_unless_aligned(blk, aligned, vector):
+    """16-byte loads need the keys 16-byte aligned and every chunk to start
+    on a multiple of 4 rows (blk % 4 == 0); else lane by lane."""
+    assert P.hist_plan(300_001, 8, blk, aligned).vector == vector
+
+
+@pytest.mark.parametrize("n,blk,nblocks", [
+    (1, 8, 1), (2048, 2048, 1), (2049, 2048, 2), (300_001, 100, 1056),
+    (60_000_000, 2048, 1056)])
+def test_hist_plan_grid_never_exceeds_the_blocks(n, blk, nblocks):
+    assert P.hist_plan(n, 8, blk).nblocks == nblocks
+
+
+@pytest.mark.parametrize("parts", [0, P.RADIX_HIST_PARTS_MAX + 1])
+def test_hist_plan_refuses_widths_out_of_range(parts):
+    with pytest.raises(ValueError, match="parts must be in"):
+        P.hist_plan(1000, parts, 2048)

@@ -1,35 +1,20 @@
-"""Sort-count gate (first piece): the port's sortless paths take no sort.
+"""Sort-count gate: the port's sortless paths take no sort.
 
 The reference counts HLO ``sort`` ops; the port counts the ``aten`` calls
-that sort (``sort``, ``argsort``, ``unique`` in its forms, ``topk``) with a
-``TorchDispatchMode``.  The shuffle dispatch (the counting rank) and the
-direct and hash group-bys must take none.  Per-query budgets come later.
+that sort (``sort``, ``argsort``, ``unique`` in its forms, ``topk``) with
+``repro_torch.core.sortcount.SortCounter``.  The shuffle dispatch (the
+counting rank) and the direct and hash group-bys must take none; the
+per-query budgets are ``tests/test_torch_sort_budget.py``'s.
 """
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import comm
 from repro_torch.core import exchange as ex
 from repro_torch.core import relational as rel
+from repro_torch.core.sortcount import SortCounter
 from repro_torch.core.table import from_numpy
-
-_SORTING = {"sort", "argsort", "topk", "unique", "_unique", "_unique2",
-            "unique_dim", "unique_consecutive", "unique_dim_consecutive"}
-
-
-class SortCounter(TorchDispatchMode):
-    """Counts the sorting aten calls made while it is active (this thread)."""
-
-    def __init__(self):
-        super().__init__()
-        self.calls: list[str] = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.overloadpacket.__name__ in _SORTING:
-            self.calls.append(str(func))
-        return func(*args, **(kwargs or {}))
 
 
 def _table(n=3000, seed=0):
