@@ -31,12 +31,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      the kernels' launch counters reset just before and read just after,
      and each query's sorts counted (``core/sortcount.SortCounter``),
      printed per join method and held to the planner-off budget of
-     ``sortcount.MAX_SORTS``;
+     ``sortcount.MAX_SORTS``; then the 22 plans the SQL frontend compiles
+     from ``src/repro_torch/queries/sql`` (``repro_torch.sql``) under both
+     join methods, each equal to the hand-built plan's result (integer
+     columns byte for byte, floats within rtol 1e-7; how many are
+     byte-identical throughout is printed);
   5. all 22 queries at SF 10 (60 M lineitem rows resident on the card),
      under each join method one warm-up and the median of 3 timed runs per
      query, peak device memory, and each query's device busy time from one
      profiled run (sorted joins); the hash join's results checked against
-     the sorted join's, and Q1/Q6/Q13/Q15 against the reference;
+     the sorted join's, and Q1/Q6/Q13/Q15 against the reference; then one
+     run of each SQL-compiled plan (sorted joins), equal to the hand-built
+     plan's;
   6. the distributed path: all 22 queries at SF 1 through
      ``run_distributed`` on a ThreadGroup of N ranks on the one card (N = 4
      and 8 with sorted joins, N = 4 with hash joins), each equal to phase
@@ -50,6 +56,23 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      run, peak device memory, each result equal to phase 5's.  The ranks'
      work is serialised on one card: these are times of the distributed
      code path, not of a cluster;
+ 7b. recovery (``repro_torch.distributed``) at SF 10 on Q5, Q9 and Q18,
+     with launch counters reset just before and read just after: the
+     default fault plan (a transient, a corrupt and an overflow) through
+     ``QueryRunner`` on a ThreadGroup of 4, each fault fired, the corrupt
+     one a real bit flip of a checksummed exchange on the card where the
+     plan's first group-by exchanges (Q5, Q9), the final attempt
+     byte-identical to a clean run with its wire format and capacity
+     factor; a device loss 4 -> 3 (rank 3 at the first exchange), the
+     recovered result byte-identical to a clean run on 3 ranks and equal to
+     phase 5's, with each attempt's wall time, the resident GB before and
+     after the shrink and the re-partition and upload time at N = 3; then
+     lineage snapshots (``run_resumable`` on the card, a ``LineageStore``
+     under ``build/``): snapshot count, bytes and write time, a resumed run
+     byte-identical and reusing a snapshot, full re-execution and resume
+     times, and a store written at width 8 resumed at 5 (re-sharded).  The
+     snapshot bytes are reckoned from SF 1's snapshots before the first
+     write; above ``LINEAGE_MAX_BYTES`` the lineage part runs at SF 1;
   8. with the SF 10 tables freed: the 32-bit hash probe against its plain
      version, bit for bit, over SF 10's l_orderkey (60 M) probing
      o_orderkey (15 M) as int32 at caps 8, 16, 32 and 64, every design with
@@ -101,6 +124,10 @@ SF_MAIN = 1.0
 SF_TIMED = 10.0
 SEED = 11
 REPS = 3
+# phase 7b: the queries the reference's recovery benchmark gates, and the
+# most snapshot bytes the lineage part writes at SF 10
+RECOVERY_QUERIES = (5, 9, 18)
+LINEAGE_MAX_BYTES = 16e9
 # phases 8 and 9: the LM path's attention shape (B, Hq, Hkv, S, D), its
 # config, the forward's (B, S), the sequence of the logit comparisons, and
 # generate's (batch, prompt length, new tokens)
@@ -452,6 +479,42 @@ def check_hash_probe(dev, n: int, m: int) -> dict:
 # phases 4 and 5: the queries
 # ---------------------------------------------------------------------------
 
+def same_bytes(got: dict, want: dict) -> bool:
+    """Equal column names, dtypes and bytes."""
+    return set(got) == set(want) and all(
+        got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes()
+        for k in want)
+
+
+def same_plan_result(got: dict, want: dict, label: str) -> float | None:
+    """A SQL-compiled plan's result against the hand-built plan's, over
+    the columns both have (a SQL plan names its sort helper columns after
+    the key where a hand-built plan picked its own names): the same rows
+    and dtypes, every integer column byte for byte, float columns within
+    the reference's rtol 1e-7.  Returns None where every column is
+    byte-identical, else the largest relative difference of a float column
+    (on the card a float sum's rounding follows the group count, and the
+    two plans may number their groups differently)."""
+    import numpy as np
+    keys = sorted(set(got) & set(want))
+    if not keys:
+        raise AssertionError(f"{label}: no common output columns")
+    worst = None
+    for k in keys:
+        a, b = got[k], want[k]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{label} {k}: {a.dtype} {a.shape} against "
+                                 f"{b.dtype} {b.shape}")
+        if a.tobytes() == b.tobytes():
+            continue
+        if not np.issubdtype(a.dtype, np.floating):
+            raise AssertionError(f"{label} {k}: integer column differs")
+        np.testing.assert_allclose(a, b, rtol=1e-7, err_msg=f"{label} {k}")
+        rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+        worst = rel if worst is None else max(worst, rel)
+    return worst
+
+
 def compare(got: dict, want: dict, label: str) -> None:
     """The reference package's rule: row counts equal, floats rtol 1e-7."""
     import numpy as np
@@ -468,13 +531,14 @@ def compare(got: dict, want: dict, label: str) -> None:
 
 
 def run_main_path(dev):
-    """Phase 4.  Returns the launch counts, the SF 1 database and the
-    reference's results on it."""
+    """Phase 4.  Returns the launch counts, the SF 1 database, the
+    reference's results on it and the SQL-compiled plans."""
     from repro_torch import kernels as K
     from repro_torch.core import backend as B
     from repro_torch.core.sortcount import LEGS, MAX_SORTS, SortCounter
     from repro_torch.data import tpch
     from repro_torch.queries import QUERIES
+    from repro_torch.sql import sql_queries
     t0 = time.perf_counter()
     db = tpch.generate(SF_MAIN, seed=SEED)
     t1 = time.perf_counter()
@@ -482,6 +546,8 @@ def run_main_path(dev):
     t2 = time.perf_counter()
     log(f"SF {SF_MAIN}: generated in {t1 - t0:.1f} s, NumPy reference of 22 "
         f"queries in {t2 - t1:.1f} s")
+    sql = sql_queries()
+    hand = {}
     K.reset_launches()
     for jm in ("sorted", "hash"):
         t3 = time.perf_counter()
@@ -492,6 +558,7 @@ def run_main_path(dev):
                                      device=dev)
             sorts[q] = len(c.calls)
             compare(got, refs[q], f"SF {SF_MAIN} q{q} join={jm}")
+            hand[jm, q] = got
         log(f"SF {SF_MAIN}: 22 queries join={jm} equal the reference "
             f"({time.perf_counter() - t3:.1f} s with the first upload)")
         log(f"SF {SF_MAIN} join={jm} sorts per query (planner on): "
@@ -503,19 +570,34 @@ def run_main_path(dev):
         if over:
             raise AssertionError(f"join={jm}: planner-on sorts above the "
                                  f"planner-off budget: {over}")
+    for jm in ("sorted", "hash"):
+        t3 = time.perf_counter()
+        differ = {}
+        for q in sorted(sql):
+            got, _ = B.run_local(sql[q], db, join_method=jm, device=dev)
+            rel = same_plan_result(got, hand[jm, q],
+                                   f"SF {SF_MAIN} q{q} join={jm} SQL plan")
+            if rel is not None:
+                differ[q] = rel
+        log(f"SF {SF_MAIN}: 22 SQL-compiled plans join={jm} equal the "
+            f"hand-built plans' results, integer columns byte for byte; "
+            f"{22 - len(differ)} of 22 byte-identical throughout, float "
+            f"columns of the others within max relative difference "
+            f"{json.dumps({q: f'{r:.2e}' for q, r in differ.items()})} "
+            f"({time.perf_counter() - t3:.1f} s)")
     counts = dict(K.launches)
-    log(f"launches on the main path (SF {SF_MAIN}, 22 queries x 2 joins): "
-        f"{json.dumps(counts)}")
+    log(f"launches on the main path (SF {SF_MAIN}, 22 queries x 2 joins, "
+        f"hand-built and SQL plans): {json.dumps(counts)}")
     local = ("segsum_sum", "segsum_count", "segsum_minmax", "hash_insert",
              "hash_probe64")
     missing = [k for k in local if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    return counts, db, refs
+    return counts, db, refs, sql
 
 
-def run_timed(dev, db) -> dict:
+def run_timed(dev, db, sql) -> dict:
     """Phase 5.  Returns the sorted-join results per query."""
     import torch
     from repro_torch import kernels as K
@@ -571,6 +653,20 @@ def run_timed(dev, db) -> dict:
         compare(results[q], want, f"SF {SF_TIMED} q{q}")
         log(f"SF {SF_TIMED} q{q} equals the reference "
             f"(reference {time.perf_counter() - s:.1f} s)")
+    t3 = time.perf_counter()
+    differ = {}
+    for q in sorted(sql):
+        got, _ = B.run_local(sql[q], db, device=dev)
+        rel = same_plan_result(got, results[q],
+                               f"SF {SF_TIMED} q{q} join=sorted SQL plan")
+        if rel is not None:
+            differ[q] = rel
+    log(f"SF {SF_TIMED}: 22 SQL-compiled plans join=sorted equal the "
+        f"hand-built plans' results, integer columns byte for byte; "
+        f"{22 - len(differ)} of 22 byte-identical throughout, float columns "
+        f"of the others within max relative difference "
+        f"{json.dumps({q: f'{r:.2e}' for q, r in differ.items()})} "
+        f"({time.perf_counter() - t3:.1f} s)")
     return results
 
 
@@ -671,6 +767,228 @@ def run_distributed_timed(dev, db, results) -> None:
         f"{sum(medians.values()):.1f} ms; peak device memory "
         f"{peak / 1e9:.2f} GB; every result equals run_local's (ranks "
         f"serialised on one card, not a cluster's times)")
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: recovery
+# ---------------------------------------------------------------------------
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def reckon_snapshot_bytes(dev, db) -> float:
+    """The lineage snapshots Q5, Q9 and Q18 write at SF 10, reckoned from
+    the ones they write at SF 1 (a snapshot is a post-exchange table, whose
+    rows grow with the scale factor)."""
+    import shutil
+    import tempfile
+    from repro_torch.distributed.lineage import LineageStore, run_resumable
+    from repro_torch.queries import QUERIES
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="lineage_sf1_", dir=ROOT / "build")
+    try:
+        for q in RECOVERY_QUERIES:
+            run_resumable(QUERIES[q], db, LineageStore(f"{work}/q{q}"),
+                          device=dev)
+        nbytes = dir_bytes(work)
+    finally:
+        shutil.rmtree(work)
+    reckoned = nbytes * SF_TIMED / SF_MAIN
+    log(f"lineage snapshots of Q5, Q9, Q18 at SF {SF_MAIN}: {nbytes / 1e9:.3f}"
+        f" GB, so {reckoned / 1e9:.2f} GB reckoned at SF {SF_TIMED} (limit "
+        f"{LINEAGE_MAX_BYTES / 1e9:.0f} GB)")
+    return reckoned
+
+
+def run_recovery(dev, db, results, snapshot_bytes, card) -> dict[str, int]:
+    """Phase 7b: the default fault plan and a device loss through
+    ``QueryRunner`` on 4 ranks, then lineage snapshots and resumes, at
+    SF 10.  Returns the launch counts of the phase."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import backend as B
+    from repro_torch.data import tpch
+    from repro_torch.distributed.chaos import (ChaosInjector, FaultPlan,
+                                               FaultSpec, TransientFault)
+    from repro_torch.distributed.fault import QueryRunner, RetryPolicy
+    from repro_torch.distributed.lineage import LineageStore, run_resumable
+    from repro_torch.queries import QUERIES
+    n = 4
+
+    def gb() -> float:
+        return torch.cuda.memory_allocated(dev) / 1e9
+
+    K.reset_launches()
+
+    # the default plan, on phase 7's resident shards: from capacity factor
+    # 1, the injected overflow escalates to phase 7's 2
+    for q in RECOVERY_QUERIES:
+        runner = QueryRunner(db, n, capacity_factor=1.0, escalation=2.0,
+                             chaos=ChaosInjector(FaultPlan.default(SEED)),
+                             policy=RetryPolicy(max_attempts=6,
+                                                backoff_s=0.01),
+                             device=dev)
+        res = runner.run(QUERIES[q])
+        label = f"SF {SF_TIMED} N={n} q{q} FaultPlan.default({SEED})"
+        outcomes = res.report.outcomes()
+        fired = [(f.kind, f.cut, f.index, f.simulated)
+                 for f in res.report.injected]
+        if outcomes != ["transient", "corrupt", "overflow", "ok"] or \
+                [f[0] for f in fired] != ["transient", "corrupt", "overflow"]:
+            raise AssertionError(f"{label}: outcomes {outcomes}, fired "
+                                 f"{fired}")
+        # the corrupt fault fires at the first group_by cut: in Q5 and Q9 a
+        # group-by whose partial is gathered through a checksummed exchange;
+        # Q18 first groups lineitem by l_orderkey, its partitioning key,
+        # with no exchange, so there the fault is simulated, as in the
+        # reference
+        if fired[1][3] != (q == 18):
+            raise AssertionError(f"{label}: corrupt fault simulated = "
+                                 f"{fired[1][3]}")
+        last = res.report.attempts[-1]
+        clean, _, overflow = B.run_distributed(
+            QUERIES[q], db, n, capacity_factor=last.capacity_factor,
+            wire_format=last.wire_format, device=dev)
+        if overflow or not same_bytes(res.result, clean):
+            raise AssertionError(f"{label}: the final attempt differs from "
+                                 f"a clean run")
+        walls = ", ".join(f"{a.outcome} {a.wall_s * 1e3:.1f} ms"
+                          for a in res.report.attempts)
+        log(f"{label}: fired {fired}; attempts {walls}; final attempt at "
+            f"capacity factor {last.capacity_factor}, {last.wire_format} "
+            f"wire, byte-identical to a clean run with both")
+
+    # a device loss 4 -> 3, each time from phase 7's resident 4-rank shards
+    for q in RECOVERY_QUERIES:
+        B.release_shards(db, dev, n - 1)
+        B.device_shards(db, dev, n)
+        torch.cuda.synchronize(dev)
+        before = gb()
+        runner = QueryRunner(db, n, device=dev, chaos=ChaosInjector(
+            FaultPlan.device_loss(SEED, devices=(3,), cut="exchange")))
+        res = runner.run(QUERIES[q])
+        torch.cuda.synchronize(dev)
+        after = gb()
+        label = f"SF {SF_TIMED} q{q} device loss {n} -> {n - 1}"
+        if res.report.outcomes() != ["device_lost", "ok"] or \
+                (runner.devices, runner.topology_generation,
+                 runner.lost_devices) != (n - 1, 1, (3,)):
+            raise AssertionError(f"{label}: outcomes "
+                                 f"{res.report.outcomes()}, devices "
+                                 f"{runner.devices}, lost "
+                                 f"{runner.lost_devices}")
+        clean, _, overflow = B.run_distributed(QUERIES[q], db, n - 1,
+                                               device=dev)
+        if overflow or not same_bytes(res.result, clean):
+            raise AssertionError(f"{label}: differs from a clean run on "
+                                 f"{n - 1} ranks")
+        compare(res.result, results[q], f"{label} vs run_local")
+        walls = ", ".join(f"{a.outcome} {a.wall_s * 1e3:.1f} ms"
+                          for a in res.report.attempts)
+        log(f"{label}: attempts {walls} (the second re-partitions and "
+            f"uploads at N={n - 1}); resident {before:.2f} GB before the "
+            f"shrink, {after:.2f} GB after; byte-identical to a clean run on "
+            f"{n - 1} ranks, equal to run_local's")
+    B.release_shards(db, dev, n - 1)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    B.device_shards(db, dev, n - 1)
+    torch.cuda.synchronize(dev)
+    log(f"SF {SF_TIMED}: re-partition and upload at N={n - 1}: "
+        f"{time.perf_counter() - t0:.2f} s, {gb():.2f} GB resident")
+    B.release_shards(db, dev, n - 1)
+
+    # lineage snapshots: written by a run that fails at finalize, then
+    # resumed, against full re-execution (the reference's bench_recovery)
+    class TimedStore(LineageStore):
+        """A store that adds up the time its snapshot writes take (the copy
+        to the host, the npy write and its CRC)."""
+        write_s = 0.0
+
+        def save(self, tag, table, ctx, node=None):
+            t = time.perf_counter()
+            super().save(tag, table, ctx, node)
+            self.write_s += time.perf_counter() - t
+
+    sf = SF_TIMED if snapshot_bytes <= LINEAGE_MAX_BYTES else SF_MAIN
+    ldb = db if sf == SF_TIMED else tpch.generate(SF_MAIN, seed=SEED)
+    if sf != SF_TIMED:
+        log(f"lineage at SF {sf}: SF {SF_TIMED} would write "
+            f"{snapshot_bytes / 1e9:.1f} GB of snapshots")
+    work = tempfile.mkdtemp(prefix="lineage_", dir=ROOT / "build")
+
+    def populate(q, store, n_devices):
+        inj = ChaosInjector(FaultPlan(q, (
+            FaultSpec("transient", cut="finalize"),)))
+        try:
+            run_resumable(QUERIES[q], ldb, store, chaos=inj,
+                          n_devices=n_devices, device=dev)
+        except TransientFault:
+            return
+        raise AssertionError(f"q{q}: the finalize fault did not fire")
+
+    def timed(fn) -> float:
+        fn()                                        # warm-up
+        runs = []
+        for _ in range(REPS):
+            t = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t)
+        return statistics.median(runs)
+
+    try:
+        for q in RECOVERY_QUERIES:
+            label = f"SF {sf} q{q} lineage"
+            store = TimedStore(f"{work}/q{q}")
+            t0 = time.perf_counter()
+            populate(q, store, 1)
+            fail_s = time.perf_counter() - t0
+            saved, nbytes = store.saved, dir_bytes(store.dir)
+            if saved < 1:
+                raise AssertionError(f"{label}: no snapshot written")
+            full, _ = B.run_local(QUERIES[q], ldb, device=dev)
+            full_s = timed(lambda: B.run_local(QUERIES[q], ldb, device=dev))
+
+            def resume(st, width):
+                got, _, overflow, reused = run_resumable(
+                    QUERIES[q], ldb, st, n_devices=width, device=dev)
+                if overflow or reused < 1 or not same_bytes(got, full):
+                    raise AssertionError(f"{label}: resume at width "
+                                         f"{width} reused {reused}, "
+                                         f"overflow {overflow}, or differs")
+            resume_s = timed(lambda: resume(store, 1))
+            if store.resharded:
+                raise AssertionError(f"{label}: a same-width resume "
+                                     f"re-sharded")
+            wide = TimedStore(f"{work}/q{q}_w8")
+            populate(q, wide, 8)
+            reshard_s = timed(lambda: resume(wide, 5))
+            if wide.resharded < 1:
+                raise AssertionError(f"{label}: the width 8 -> 5 resume did "
+                                     f"not re-shard")
+            log(f"{label}: {saved} snapshots, {nbytes / 1e9:.3f} GB, written "
+                f"in {store.write_s:.2f} s (the failed attempt took "
+                f"{fail_s:.2f} s); full_s {full_s:.4f}, resume_s "
+                f"{resume_s:.4f}, ratio {resume_s / full_s:.3f}; written at "
+                f"width 8 and resumed at 5: {reshard_s:.4f} s, ratio "
+                f"{reshard_s / full_s:.3f}, re-sharded {wide.resharded}; "
+                f"each resume byte-identical to run_local; medians of "
+                f"{REPS} after a warm-up ({card})")
+            shutil.rmtree(f"{work}/q{q}")
+            shutil.rmtree(f"{work}/q{q}_w8")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    counts = dict(K.launches)
+    log(f"launches on the recovery path (SF {SF_TIMED}, Q5/Q9/Q18): "
+        f"{json.dumps(counts)}")
+    missing = [k for k in ("segsum_sum", "counting_rank") if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the recovery "
+                             f"path: {missing}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1083,11 +1401,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     skew_counts = run_skew_path(dev, db10)
 
-    counts, db1, refs = run_main_path(dev)
-    results = run_timed(dev, db10)
+    counts, db1, refs, sql = run_main_path(dev)
+    results = run_timed(dev, db10, sql)
     dist_counts = run_distributed_path(dev, db1, refs)
+    snapshot_bytes = reckon_snapshot_bytes(dev, db1)
     del db1
     run_distributed_timed(dev, db10, results)
+    run_recovery(dev, db10, results, snapshot_bytes, card)
 
     # phases 8 and 9 run with the SF 10 tables freed
     probe_np = db10.tables["lineitem"]["l_orderkey"]

@@ -41,7 +41,7 @@ from .table import Database, Table, from_numpy, resolve_device, to_numpy
 __all__ = [
     "PlanStats", "RefContext", "LocalContext", "DistContext",
     "run_reference", "run_local", "run_distributed",
-    "device_tables", "device_shards", "partition_database",
+    "device_tables", "device_shards", "release_shards", "partition_database",
     "hash_partition_np", "PARTITION_KEYS",
 ]
 
@@ -229,6 +229,23 @@ class _BaseContext:
         if stats is not None:
             self.stats.log.append(stats)
 
+    # -- chaos fault injection ---------------------------------------------
+    # a ChaosInjector (repro_torch.distributed.chaos), attached by the run_*
+    # drivers; None (the default) makes every cut point a no-op
+    chaos = None
+
+    def _chaos_point(self, cut: str, tamperable: bool = False):
+        """Named failure-domain cut point (scan / exchange / group_by /
+        finalize).  Asks the armed injector for a fault due here this
+        attempt: TRANSIENT/DETERMINISTIC faults raise, STRAGGLER sleeps,
+        OVERFLOW ORs ``ctx.overflow``, and CORRUPT returns a payload tamper
+        callable when the call site can route it into a checksummed
+        exchange (``tamperable``) — otherwise it ORs ``ctx.corrupt``
+        directly, simulating the detection."""
+        if self.chaos is None:
+            return None
+        return self.chaos.fire(cut, self, tamperable=tamperable)
+
 
 # ===========================================================================
 # NumPy reference backend
@@ -345,6 +362,7 @@ class LocalContext(_BaseContext):
         self._tables = tables
         self.device = torch.device(device)
         self.overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        self.corrupt = torch.zeros((), dtype=torch.bool, device=self.device)
         self.join_method = join_method
 
     def _lookup(self, values: np.ndarray, idx: torch.Tensor) -> torch.Tensor:
@@ -367,6 +385,7 @@ class LocalContext(_BaseContext):
         return torch.where(cond, a, b)
 
     def scan(self, name):
+        self._chaos_point("scan")
         return self._tables[name]
 
     def filter(self, t, mask):
@@ -430,6 +449,7 @@ class LocalContext(_BaseContext):
         """``method`` selects the aggregation path (planner rule: ``hash``
         when ``groups_hint`` is claimed but ``key_bits`` is unprovable); the
         dictionary scales with the runner's capacity factor."""
+        self._chaos_point("group_by")
         aggs, avg_post = _expand_avg(list(aggs))
         out = self._partial(t, keys, aggs, key_bits, method, groups_hint)
         # logged after the partial, where the distributed engine exchanges
@@ -465,15 +485,18 @@ class LocalContext(_BaseContext):
         return {name: g[name][0] for name in g.names}
 
     def agg_scalar(self, t, aggs):
+        self._chaos_point("group_by")   # scalar aggregation = group_by domain
         self._count("allreduce")
         aggs, avg_post = _expand_avg(list(aggs))
         return _finish_avg(self._scalar_partials(t, aggs), avg_post)
 
     def shuffle(self, t, key, wire=None):
+        self._chaos_point("exchange")
         self._count("shuffle", self._wire_entry("shuffle", t, wire))
         return t
 
     def broadcast(self, t, p2p=False, wire=None):
+        self._chaos_point("exchange")
         kind = "broadcast_p2p" if p2p else "broadcast"
         self._count(kind, self._wire_entry(kind, t, wire,
                                            narrow=False if p2p else None))
@@ -487,6 +510,7 @@ class LocalContext(_BaseContext):
 
     def finalize(self, t, sort_keys=None, limit=None, replicated=False,
                  wire=None):
+        self._chaos_point("finalize")
         if not replicated:
             self._count("gather", self._wire_entry("gather", t, wire))
         if sort_keys:
@@ -514,7 +538,8 @@ class DistContext(LocalContext):
     ``corrupt`` collects the wire checksums' verdicts (a received block that
     fails its integrity word); ``overflow`` as in :class:`LocalContext`,
     plus shuffle buckets past their capacity and narrowed lanes out of
-    bounds."""
+    bounds.  A corrupt fault of an armed ``chaos`` injector flips a bit of
+    a checksummed payload where one is in flight (packed exchanges)."""
     distributed = True
 
     def __init__(self, db, tables: dict[str, Table], device: torch.device,
@@ -525,31 +550,34 @@ class DistContext(LocalContext):
         self.group = group
         self.N = group.size
         self.packed = packed_exchange
-        self.corrupt = torch.zeros((), dtype=torch.bool, device=self.device)
 
     def _cap_per_dest(self, t: Table) -> int:
         return max(8, math.ceil(t.capacity * self.capacity_factor / self.N))
 
     # -- exchanges ----------------------------------------------------------
     def shuffle(self, t, key, wire=None):
+        tamper = self._chaos_point("exchange", tamperable=self.packed)
         self._count("shuffle")
         keyv = t[key] if isinstance(key, str) else self._key(t, key)
         out, ov, cr, _, stats = ex.shuffle(
             t, keyv, self.group, self._cap_per_dest(t), packed=self.packed,
-            wire=wire, narrow=self.wire_narrow)
+            wire=wire, narrow=self.wire_narrow, tamper=tamper)
         self.stats.log.append(stats)
         self.overflow = self.overflow | ov
         self.corrupt = self.corrupt | cr
         return out
 
     def broadcast(self, t, p2p=False, wire=None):
+        # the p2p baseline ships unchecked: corrupt faults here are simulated
+        tamper = self._chaos_point("exchange",
+                                   tamperable=self.packed and not p2p)
         self._count("broadcast_p2p" if p2p else "broadcast")
         if p2p:
             out, stats = ex.broadcast_table_p2p(t, self.group)
         else:
             out, ov, cr, stats = ex.broadcast_table(
                 t, self.group, packed=self.packed, wire=wire,
-                narrow=self.wire_narrow)
+                narrow=self.wire_narrow, tamper=tamper)
             self.overflow = self.overflow | ov
             self.corrupt = self.corrupt | cr
         self.stats.log.append(stats)
@@ -563,6 +591,8 @@ class DistContext(LocalContext):
         capacity).  key_bits / method: the per-rank partial and the
         post-exchange merge run the same sortless path.  wire: provable
         (lo, hi) bounds per partial column for the narrow wire format."""
+        tamper = self._chaos_point(
+            "group_by", tamperable=self.packed and exchange != "local")
         aggs, avg_post = _expand_avg(list(aggs))
         partial = self._partial(t, keys, aggs, key_bits, method, groups_hint)
         if exchange == "local":
@@ -576,14 +606,15 @@ class DistContext(LocalContext):
                     else partial[keys[0]]
                 moved, ov, cr, _, stats = ex.shuffle(
                     partial, keyv, self.group, self._cap_per_dest(partial),
-                    packed=self.packed, wire=wire, narrow=self.wire_narrow)
+                    packed=self.packed, wire=wire, narrow=self.wire_narrow,
+                    tamper=tamper)
                 self.stats.log.append(stats)
             elif exchange == "gather":
                 kind = "gather" if final else "broadcast"
                 self._count(kind)
                 moved, ov, cr, stats = ex.broadcast_table(
                     partial, self.group, packed=self.packed, wire=wire,
-                    narrow=self.wire_narrow)
+                    narrow=self.wire_narrow, tamper=tamper)
                 self.stats.log.append(dataclasses.replace(stats, kind=kind))
             else:
                 raise ValueError(exchange)
@@ -596,7 +627,8 @@ class DistContext(LocalContext):
         return _finish_avg(out, avg_post)
 
     def agg_scalar(self, t, aggs):
-        self._count("allreduce")
+        self._chaos_point("group_by")   # allreduce ships unchecked scalars:
+        self._count("allreduce")        # corrupt faults here are simulated
         aggs, avg_post = _expand_avg(list(aggs))
         ops = {name: _MERGE[op] for name, op, _ in aggs}
         out = ex.partial_to_global(self._scalar_partials(t, aggs), ops,
@@ -609,6 +641,8 @@ class DistContext(LocalContext):
 
         ``replicated=True`` marks tables already merged on every rank (e.g.
         after group_by(exchange='gather')) — no further collection needed."""
+        tamper = self._chaos_point(
+            "finalize", tamperable=self.packed and not replicated)
         if not replicated:
             self._count("gather")
             if sort_keys:
@@ -617,7 +651,7 @@ class DistContext(LocalContext):
                 t = rel.limit(t, limit)   # local top-k before the gather
             t, ov, cr, stats = ex.broadcast_table(
                 t, self.group, packed=self.packed, wire=wire,
-                narrow=self.wire_narrow)
+                narrow=self.wire_narrow, tamper=tamper)
             self.overflow = self.overflow | ov
             self.corrupt = self.corrupt | cr
             self.stats.log.append(dataclasses.replace(stats, kind="gather"))
@@ -681,21 +715,26 @@ def _as_column(v, device: torch.device) -> torch.Tensor:
 
 def run_local(query_fn, db: Database, join_method: str = "sorted",
               capacity_factor: float = 2.0, wire_format: str | None = None,
-              return_overflow: bool = False,
+              chaos=None, return_overflow: bool = False,
               device: str | torch.device | None = None,
               ) -> tuple[dict, PlanStats] | tuple[dict, PlanStats, bool]:
     """Run a query on one device (``cuda`` unless ``device`` names another;
     raises where CUDA is absent).  Returns host numpy columns and the plan
-    statistics; a capacity overflow raises unless ``return_overflow``."""
+    statistics; a capacity overflow raises unless ``return_overflow``.  An
+    armed ``chaos`` injector fires at the plan's cut points; a payload
+    integrity failure raises :class:`CorruptPayload`."""
     dev = resolve_device(device)
     ctx = LocalContext(db, device_tables(db, dev), dev,
                        capacity_factor=capacity_factor,
                        join_method=join_method, wire_format=wire_format)
+    ctx.chaos = chaos
     out = query_fn(ctx)
     if isinstance(out, dict):
         out = Table({k: _as_column(v, dev) for k, v in out.items()},
                     torch.ones((), dtype=torch.int32, device=dev))
     result = to_numpy(rel.ensure_compact(out))
+    if bool(ctx.corrupt):
+        raise wi.CorruptPayload("local run: payload integrity check failed")
     overflow = bool(ctx.overflow)
     if return_overflow:
         return result, ctx.stats, overflow
@@ -803,6 +842,14 @@ def device_shards(db: Database, device: torch.device, n: int,
     return held
 
 
+def release_shards(db: Database, device: torch.device, n: int) -> None:
+    """Drop ``db``'s cached partitionings over ``n`` ranks on ``device``
+    (after a device loss the old width's shards are dead memory)."""
+    cache = db.__dict__.get(_DEVICE_SHARDS, {})
+    for key in [k for k in cache if k[:2] == (str(device), n)]:
+        del cache[key]
+
+
 def _drop_device_shards(db) -> None:
     db.__dict__.pop(_DEVICE_SHARDS, None)
 
@@ -826,6 +873,7 @@ def run_distributed(query_fn, db: Database, group_or_n,
                     partition_keys: dict | None = None,
                     join_method: str = "sorted",
                     wire_format: str | None = None,
+                    chaos=None,
                     device: str | torch.device | None = None,
                     ) -> tuple[dict, PlanStats, bool]:
     """Run a query on every rank of a group; returns (result, stats,
@@ -838,8 +886,10 @@ def run_distributed(query_fn, db: Database, group_or_n,
     paper's MPI model.  The result is rank 0's for a ThreadGroup and this
     process's own for a TorchDistGroup (every rank ends with the same
     table).  ``overflow`` is True if any rank overflowed.  A payload that
-    failed its integrity check on any rank raises :class:`CorruptPayload`:
-    corrupted buffers are never decoded into served results.
+    failed its integrity check on any rank (possibly through an armed
+    ``chaos`` injector's tamper, which every rank's context carries) raises
+    :class:`CorruptPayload`: corrupted buffers are never decoded into served
+    results.
     """
     if isinstance(group_or_n, int):
         group = comm.ThreadGroup(group_or_n, device)
@@ -854,6 +904,7 @@ def run_distributed(query_fn, db: Database, group_or_n,
                           capacity_factor=capacity_factor,
                           packed_exchange=packed_exchange,
                           join_method=join_method, wire_format=wire_format)
+        ctx.chaos = chaos
         out = query_fn(ctx)
         if isinstance(out, dict):
             out = Table({k: _as_column(v, dev) for k, v in out.items()},

@@ -108,7 +108,14 @@ class ThreadGroup:
             t.join()
         self._slots = [None] * self.size     # drop the last tensors
         raised = [e for e in errors if e is not None]
-        if raised:
+        # An error's traceback holds its rank's frames, and with them the
+        # rank's tables; neither those frames nor this one may hold the
+        # error in turn, or the tables outlive it until a garbage
+        # collection (a device loss would keep the dead width's shards).
+        errors.clear()
+        if not raised:
+            return results
+        try:
             # the rank that failed first, not the ranks its abort woke up
             first = next((e for e in raised
                           if not isinstance(e, threading.BrokenBarrierError)),
@@ -118,7 +125,8 @@ class ThreadGroup:
                                    f"{BARRIER_TIMEOUT_S} s at a collective") \
                     from first
             raise first
-        return results
+        finally:
+            del raised, first
 
     # -- used by the ranks ---------------------------------------------------
     def _share(self, rank: int, x) -> list:

@@ -531,8 +531,8 @@ def plan_signature(root: P.Node) -> str:
 
 def _walk_signature(nodes) -> str:
     """:func:`plan_signature` body over an already-walked node list — shared
-    with :func:`repro.distributed.lineage.plan_fingerprint`, which receives
-    the executor's walk order rather than a root."""
+    with :func:`repro_torch.distributed.lineage.plan_fingerprint`, which
+    receives the executor's walk order rather than a root."""
     ordinal = {id(n): i for i, n in enumerate(nodes)}
 
     def nsig(m):
@@ -1136,8 +1136,8 @@ class _Executor:
     per-plan memo is also what makes the backend's build-side cache hit).
 
     When the context carries a ``lineage`` store
-    (:class:`repro.distributed.lineage.LineageStore`, eager local runs
-    only), every exchange-type node consults the store BEFORE recursing:
+    (:class:`repro_torch.distributed.lineage.LineageStore`, single-device
+    runs only), every exchange-type node consults the store BEFORE recursing:
     a snapshot hit returns the durable post-exchange table and skips the
     entire subtree — depth-first from the root, so a query resumes from the
     topmost (= last computed, fewest-ops-remaining) durable exchange.  A
@@ -1238,8 +1238,9 @@ class _Executor:
         store = getattr(self.ctx, "lineage", None)
         if store is not None and _is_exchange_node(node):
             tag = self._tags[id(node)]
-            out = store.load(tag)      # checked BEFORE recursing: a hit
-            if out is None:            # skips the whole subtree
+            # checked BEFORE recursing: a hit skips the whole subtree
+            out = store.load(tag, self.ctx)
+            if out is None:
                 out = self._exec_inner(node)
                 store.save(tag, out, self.ctx, node=node)
         else:

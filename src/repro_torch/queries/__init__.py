@@ -78,13 +78,14 @@ for _mod in (q01_08, q09_15, q16_22):
     for _name in _mod.__all__:
         PLANS[int(_name[1:])] = getattr(_mod, _name)
 
-# REPRO_FRONTEND=sql selects plans compiled from the SQL texts in the
-# reference package.  The port has no SQL frontend yet (ROADMAP queue A,
-# item 8), so it refuses rather than quietly serving the hand-built plans.
+# REPRO_FRONTEND=sql swaps in plans compiled from the committed SQL texts
+# (src/repro_torch/queries/sql/q*.sql) by the repro_torch.sql frontend + IR
+# optimizer.  Same Table 4 exchange counts, same wire budgets, byte-identical
+# results — asserted by tests/test_torch_sql.py.
 if os.environ.get("REPRO_FRONTEND", "").lower() == "sql":
-    raise NotImplementedError(
-        "REPRO_FRONTEND=sql: repro_torch has no SQL frontend yet "
-        "(ROADMAP A8); unset it to run the hand-built plans")
+    from repro_torch.sql.frontend import sql_plans as _sql_plans
+    PLANS = _sql_plans()
+    assert sorted(PLANS) == list(range(1, 23)), sorted(PLANS)
 
 # compiled queries: `query_fn(ctx)` callables, plan built once and shared
 QUERIES = {qid: compile_query(fn, name=f"q{qid}")

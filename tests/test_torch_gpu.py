@@ -481,6 +481,68 @@ def test_distributed_narrow_equals_wide_on_card(cuda, qid):
         assert narrow[k].tobytes() == wide[k].tobytes(), k
 
 
+@pytest.mark.parametrize("qid", [5, 9, 13])
+def test_tampered_exchange_on_card_raises_and_recovers(cuda, qid):
+    """A corrupt fault flips one bit of a checksummed exchange's received
+    buffer on the card: the run raises CorruptPayload, and the runner's
+    wide re-run returns the clean wide answer byte for byte."""
+    from repro_torch.core import wire as W
+    from repro_torch.distributed.chaos import (ChaosInjector, FaultPlan,
+                                               FaultSpec)
+    from repro_torch.distributed.fault import QueryRunner
+    db = tpch.generate(0.05, seed=11)
+    plan = FaultPlan(9, (FaultSpec("corrupt", cut="group_by"),))
+    with pytest.raises(W.CorruptPayload):
+        B.run_distributed(QUERIES[qid], db, 4, chaos=ChaosInjector(plan))
+    inj = ChaosInjector(plan)
+    res = QueryRunner(db, 4, chaos=inj).run(QUERIES[qid])
+    assert res.report.outcomes() == ["corrupt", "ok"]
+    assert not inj.events[0].simulated
+    clean, _, _ = B.run_distributed(QUERIES[qid], db, 4, wire_format="wide")
+    for k in clean:
+        assert clean[k].tobytes() == res.result[k].tobytes(), k
+
+
+@pytest.mark.parametrize("qid", [5, 9, 18])
+def test_device_loss_on_card_equals_a_clean_smaller_group(cuda, qid):
+    from repro_torch.distributed.chaos import ChaosInjector, FaultPlan
+    from repro_torch.distributed.fault import QueryRunner
+    db = tpch.generate(0.05, seed=11)
+    runner = QueryRunner(db, 4, chaos=ChaosInjector(
+        FaultPlan.device_loss(11, devices=(3,), cut="exchange")))
+    res = runner.run(QUERIES[qid])
+    assert res.report.outcomes() == ["device_lost", "ok"]
+    assert (runner.devices, runner.topology_generation) == (3, 1)
+    widths = {key[1] for key in db.__dict__[B._DEVICE_SHARDS]}
+    assert widths == {3}                      # the 4-rank shards were freed
+    clean, _, _ = B.run_distributed(QUERIES[qid], db, 3)
+    for k in clean:
+        assert clean[k].tobytes() == res.result[k].tobytes(), k
+
+
+@pytest.mark.parametrize("qid", [5, 9, 18])
+def test_lineage_resume_on_card(cuda, tmp_path, qid):
+    from repro_torch.distributed.chaos import (ChaosInjector, FaultPlan,
+                                               FaultSpec, TransientFault)
+    from repro_torch.distributed.lineage import LineageStore, run_resumable
+    db = tpch.generate(0.05, seed=11)
+    clean, _ = B.run_local(QUERIES[qid], db)
+    for n_from, n_to in ((1, 1), (8, 5)):
+        store = LineageStore(str(tmp_path / f"lin{n_from}"))
+        inj = ChaosInjector(FaultPlan(qid, (
+            FaultSpec("transient", cut="finalize"),)))
+        with pytest.raises(TransientFault):
+            run_resumable(QUERIES[qid], db, store, chaos=inj,
+                          n_devices=n_from)
+        assert store.saved >= 1
+        got, _, ov, reused = run_resumable(QUERIES[qid], db, store,
+                                           n_devices=n_to)
+        assert not ov and reused >= 1
+        assert (store.resharded >= 1) == (n_from != n_to)
+        for k in clean:
+            assert clean[k].tobytes() == got[k].tobytes(), k
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("causal", [True, False])

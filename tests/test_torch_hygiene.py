@@ -37,6 +37,17 @@ assert abs(float(out["revenue"][0]) - float(want["revenue"][0])) <= \\
 dist, _, overflow = B.run_distributed(QUERIES[10], db, 2, device="cpu")
 want, _ = B.run_reference(QUERIES[10], db)
 assert not overflow and len(dist["revenue"]) == len(want["revenue"])
+from repro_torch.distributed import checkpoint, lineage
+from repro_torch.distributed.chaos import ChaosInjector, FaultPlan
+from repro_torch.distributed.fault import QueryRunner, RetryPolicy
+from repro_torch.sql import compile_sql, sql_queries
+runner = QueryRunner(db, 2, device="cpu",
+                     chaos=ChaosInjector(FaultPlan.default(11)),
+                     policy=RetryPolicy(max_attempts=6, backoff_s=0.0))
+res = runner.run(sql_queries()[10])
+assert res.report.outcomes() == ["transient", "corrupt", "overflow", "ok"]
+assert [len(res.result[k]) for k in res.result] == \
+    [len(want["revenue"])] * len(res.result)
 import dataclasses
 import torch
 from repro_torch import configs
@@ -68,9 +79,3 @@ def test_sources_import_no_jax_and_no_reference():
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from repro.core import table")
     assert not _FORBIDDEN.search("from repro_torch.core import table")
-
-
-def test_sql_frontend_refuses_until_ported():
-    res = _run("import repro_torch.queries", REPRO_FRONTEND="sql")
-    assert res.returncode != 0
-    assert "NotImplementedError" in res.stderr and "A8" in res.stderr
