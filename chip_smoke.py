@@ -73,6 +73,30 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      times, and a store written at width 8 resumed at 5 (re-sharded).  The
      snapshot bytes are reckoned from SF 1's snapshots before the first
      write; above ``LINEAGE_MAX_BYTES`` the lineage part runs at SF 1;
+  7c. serving and approximate answers (``repro_torch.serve``,
+     ``repro_torch.approx``) on the SF 10 tables, uploaded once, with launch
+     counters reset just before and read just after: the reference's
+     29-request stream (every sample of the 22 standing templates) through
+     ``QueryServer`` — a cold pass (22 preparations, each timed), 3 warm
+     passes (no preparation, every warm request a cache hit; per-request
+     median, stream total, requests/s, the device busy share of one
+     profiled pass), every served result byte-identical to ``run_local`` of
+     the same bound template and the ``samples[0]`` results equal to phase
+     5's, then ``degrade(3)`` and a pass with exactly 22 more preparations;
+     ``BatchExecutor`` over the stream, its memo's peak reckoned from SF 1
+     first and run at SF 10 where it fits under ``BATCH_MAX_BYTES`` with
+     the resident tables, each result byte-identical to the request run
+     alone; Q1 and Q6 on every rung of the sample ladder (host build time,
+     rung GB, warm wall, max relative CI half-width, the share of cells
+     whose interval covers phase 5's exact answer, beside the exact plan's
+     wall), rung 1 byte-identical to the exact plan, widths that never grow
+     with the sample, ``ProgressiveRunner`` and
+     ``QueryServer.submit(tolerance=)`` answering at the same rung, Q18
+     refused on every sampled rung and served exact; at SF 1 every rung of
+     Q1, Q6 and a shuffled per-supplier revenue on a ThreadGroup of 4 equal
+     to the same rung on one device (the counting rank launched), and the
+     stream under hash joins equal to the sorted server's (the 64-bit probe
+     launched); ``footprint_bytes()`` beside the resident and peak GB;
   8. with the SF 10 tables freed: the 32-bit hash probe against its plain
      version, bit for bit, over SF 10's l_orderkey (60 M) probing
      o_orderkey (15 M) as int32 at caps 8, 16, 32 and 64, every design with
@@ -111,6 +135,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -128,6 +153,13 @@ REPS = 3
 # most snapshot bytes the lineage part writes at SF 10
 RECOVERY_QUERIES = (5, 9, 18)
 LINEAGE_MAX_BYTES = 16e9
+# phase 7c: the queries answered off the sample ladder, the most device
+# memory the batch's memo may reach beside the resident SF 10 tables (above
+# it the batch runs at SF 1), and the tolerance of the served approximate
+# answers
+APPROX_QUERIES = (1, 6)
+BATCH_MAX_BYTES = 60e9
+APPROX_TOLERANCE = 0.01
 # phases 8 and 9: the LM path's attention shape (B, Hq, Hkv, S, D), its
 # config, the forward's (B, S), the sequence of the logit comparisons, and
 # generate's (batch, prompt length, new tokens)
@@ -992,6 +1024,478 @@ def run_recovery(dev, db, results, snapshot_bytes, card) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# phase 7c: serving and approximate answers
+# ---------------------------------------------------------------------------
+
+def serve_stream():
+    """The reference's ``bench_serve._stream()``: every sample of all 22
+    templates, round-robin, so consecutive requests come from different
+    templates (29 requests)."""
+    from repro_torch import serve
+    per = [[(t, s) for s in t.samples]
+           for _, t in sorted(serve.TEMPLATES.items())]
+    out, i = [], 0
+    while any(per):
+        if per[i % len(per)]:
+            out.append(per[i % len(per)].pop(0))
+        i += 1
+    return out
+
+
+def supplier_revenue():
+    """An estimable per-supplier revenue whose group-by shuffles (Q1's and
+    Q6's gather or all-reduce, so only this one ranks rows on the
+    distributed path)."""
+    from repro_torch.core.plan import col, scan
+    from repro_torch.core.table import days
+    return scan("lineitem").filter(col("l_shipdate") <= days("1998-09-02")) \
+        .group_by(["l_suppkey"],
+                  [("revenue", "sum",
+                    col("l_extendedprice") * (1 - col("l_discount"))),
+                   ("n", "count", None)], exchange="shuffle") \
+        .finalize(sort_keys=[("l_suppkey", True)])
+
+
+def launch_delta(before: dict) -> dict:
+    from repro_torch import kernels as K
+    return {k: K.launches[k] - before.get(k, 0) for k in K.launches}
+
+
+def counted(tally: dict, fn):
+    """Run ``fn`` and add the kernels it launched to ``tally``."""
+    from repro_torch import kernels as K
+    before = dict(K.launches)
+    out = fn()
+    for k, v in launch_delta(before).items():
+        tally[k] = tally.get(k, 0) + v
+    return out
+
+
+def require_launches(counts: dict, names, label: str) -> None:
+    missing = [k for k in names if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on {label}: {missing}")
+
+
+def serve_sf10(dev, db, results, card) -> tuple[dict, dict, float, dict]:
+    """7c.1: the stream through ``QueryServer`` (sorted joins) at SF 10.
+    Returns the bound requests' run_local results and times, the passes'
+    peak device memory, and the kernels the server launched (the counts
+    are 0 when it is called)."""
+    import torch
+    from repro_torch.core import backend as B
+    from repro_torch.core import planner
+    from repro_torch.serve import QueryServer
+    reqs = serve_stream()
+    # a logical width of 4 (the port serves from one card), so that
+    # degrade(3) is a real shrink
+    srv = QueryServer(db, devices=4, device=dev)
+    prep_ms = {}
+    prepare = srv._prepare
+
+    def timed_prepare(query, rdb, infer, factor):
+        s = time.perf_counter()
+        fn = prepare(query, rdb, infer, factor)
+        prep_ms[query.name] = (time.perf_counter() - s) * 1e3
+        return fn
+
+    srv._prepare = timed_prepare
+    s = time.perf_counter()
+    planner.column_stats(db)
+    stats_s = time.perf_counter() - s
+    torch.cuda.reset_peak_memory_stats(dev)
+    s = time.perf_counter()
+    srv.serve(reqs)
+    cold_ms = (time.perf_counter() - s) * 1e3
+    if (srv.recompiles, srv.cache_hits) != (22, len(reqs) - 22):
+        raise AssertionError(f"cold pass: {srv.recompiles} preparations, "
+                             f"{srv.cache_hits} hits")
+    log(f"SF {SF_TIMED} serve: cold pass of {len(reqs)} requests "
+        f"{cold_ms:.1f} ms, 22 preparations (column statistics first, "
+        f"{stats_s:.2f} s); preparation ms per template "
+        f"{json.dumps({k: round(v, 2) for k, v in prep_ms.items()})}, "
+        f"total {sum(prep_ms.values()):.1f} ms ({card})")
+    per_req, passes, served = [], [], None
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        out = []
+        for t, b in reqs:
+            s = time.perf_counter()
+            out.append(srv.submit(t, b))
+            per_req.append((time.perf_counter() - s) * 1e3)
+        passes.append((time.perf_counter() - t0) * 1e3)
+        served = out
+    hits = len(reqs) - 22 + REPS * len(reqs)
+    if (srv.recompiles, srv.cache_hits) != (22, hits):
+        raise AssertionError(f"warm passes: {srv.recompiles} preparations, "
+                             f"{srv.cache_hits} hits, want 22 and {hits}")
+    pass_ms = statistics.median(passes)
+    busy = device_busy_ms(lambda: srv.serve(reqs))
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"SF {SF_TIMED} serve: {REPS} warm passes, per-request median "
+        f"{statistics.median(per_req):.2f} ms, stream total median "
+        f"{pass_ms:.1f} ms (passes {', '.join(f'{p:.1f}' for p in passes)}),"
+        f" {len(reqs) / pass_ms * 1e3:.1f} requests/s; recompiles 22, "
+        f"cache hits {hits} ({card})")
+    log(busy_line(f"SF {SF_TIMED} serve: one profiled pass", busy, pass_ms))
+    srv.degrade(3)
+    s = time.perf_counter()
+    again = srv.serve(reqs)
+    ms = (time.perf_counter() - s) * 1e3
+    serving = launch_delta({})          # the server's passes, and no other
+    if srv.recompiles != 44:
+        raise AssertionError(f"degrade(3): {srv.recompiles} preparations, "
+                             f"want 44")
+    seq, seq_ms = {}, {}
+    for i, ((t, b), got, deg) in enumerate(zip(reqs, served, again)):
+        s = time.perf_counter()
+        want, _ = B.run_local(t.bind(**b), db, device=dev)
+        seq_ms[i] = (time.perf_counter() - s) * 1e3
+        seq[i] = want
+        if not same_bytes(got, want):
+            raise AssertionError(f"SF {SF_TIMED} serve {t.name} {b}: the "
+                                 f"served result differs from run_local's")
+        if not same_bytes(deg, want):
+            raise AssertionError(f"degrade(3): {t.name} {b} differs")
+    differ = {}
+    for i, (t, b) in enumerate(reqs):
+        if b == t.samples[0]:
+            rel = same_plan_result(served[i], results[int(t.name[1:])],
+                                   f"SF {SF_TIMED} serve {t.name}")
+            if rel is not None:
+                differ[t.name] = f"{rel:.2e}"
+    log(f"SF {SF_TIMED} serve: every served result byte-identical to "
+        f"run_local of the same bound template; the samples[0] results "
+        f"equal phase 5's hand-built results (integers exactly; floats of "
+        f"{json.dumps(differ)} within rtol 1e-7, the rest byte-identical)")
+    log(f"SF {SF_TIMED} serve: degrade(3), generation "
+        f"{srv.topology_generation}: one pass {ms:.1f} ms, exactly 22 more "
+        f"preparations (recompiles 44), every result byte-identical to "
+        f"run_local's")
+    return seq, seq_ms, peak, serving
+
+
+def run_batch(dev, db, label, seq=None) -> tuple[float, float, float]:
+    """7c.2 at one scale: the stream through ``BatchExecutor``, each result
+    byte-identical to the request run alone.  Returns (batch ms, sum of
+    the requests' own ms, memo peak bytes above what was allocated)."""
+    import torch
+    from repro_torch.core import backend as B
+    from repro_torch.serve import BatchExecutor
+    reqs = serve_stream()
+    seq_ms = 0.0
+    if seq is None:
+        seq = {}
+        for t, b in reqs:                 # the upload and the statistics
+            B.run_local(t.bind(**b), db, device=dev)
+        for i, (t, b) in enumerate(reqs):
+            s = time.perf_counter()
+            seq[i], _ = B.run_local(t.bind(**b), db, device=dev)
+            seq_ms += (time.perf_counter() - s) * 1e3
+    bx = BatchExecutor(db, device=dev)
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    s = time.perf_counter()
+    got = bx.run_batch(reqs)
+    ms = (time.perf_counter() - s) * 1e3
+    extra = torch.cuda.max_memory_allocated(dev) - before
+    if bx.shared_hits <= 0:
+        raise AssertionError(f"{label} batch: no cross-query sharing")
+    for i, out in enumerate(got):
+        if not same_bytes(out, seq[i]):
+            raise AssertionError(f"{label} batch {reqs[i][0].name}: differs "
+                                 f"from the request run alone")
+    log(f"{label} batch of {len(reqs)}: {ms:.1f} ms, {bx.shared_hits} "
+        f"shared hits, every result byte-identical to the request run "
+        f"alone; memo peak {extra / 1e9:.2f} GB above the "
+        f"{before / 1e9:.2f} GB allocated before")
+    return ms, seq_ms, extra
+
+
+def approx_sf10(dev, db, results, card) -> dict:
+    """7c.3: Q1 and Q6 off the sample ladder at SF 10, per rung, through
+    the rewrite on run_local, ``ProgressiveRunner`` and
+    ``QueryServer.submit(tolerance=)``; Q18 refused.  Returns the kernels
+    that ``ProgressiveRunner`` and ``submit(tolerance=)`` launched."""
+    import numpy as np
+    import torch
+    from repro_torch.approx import ProgressiveRunner, sampling
+    from repro_torch.approx.rewrite import rewrite_for_rung
+    from repro_torch.core import backend as B
+    from repro_torch.serve import TEMPLATES, QueryServer
+    li = db.tables["lineitem"]
+    rows = len(li["l_orderkey"])
+    row_bytes = sum(v.itemsize for v in li.values())
+    ladder_share = sum(1 / d for d in sampling.LADDER)
+    log(f"SF {SF_TIMED} approx: reckoned sample tables per query "
+        f"{ladder_share:.4f} x {rows} lineitem rows x ({row_bytes} + 24) "
+        f"bytes = {ladder_share * rows * (row_bytes + 24) / 1e9:.2f} GB on "
+        f"the host and the card (each ladder freed before the next)")
+    base = B.device_tables(db, dev)
+    srv = QueryServer(db, device=dev)
+    tally = {}
+    for q in APPROX_QUERIES:
+        t = TEMPLATES[q]
+        exact = None
+        runs = []
+        for _ in range(REPS + 1):
+            s = time.perf_counter()
+            exact, _ = B.run_local(t.query, db, device=dev)
+            runs.append((time.perf_counter() - s) * 1e3)
+        exact_ms = statistics.median(runs[1:])
+        truth = results[q]
+        widths, walls = {}, {}
+        for den in sampling.LADDER:
+            label = f"SF {SF_TIMED} q{q} rung 1/{den}"
+            s = time.perf_counter()
+            rw = rewrite_for_rung(t.query, db, den)
+            build_s = time.perf_counter() - s
+            name = sampling.rung_name("lineitem", den)
+            gb = sum(v.nbytes for v in rw.db.tables[name].values()) / 1e9
+            s = time.perf_counter()
+            tables = B.device_tables(rw.db, dev)
+            torch.cuda.synchronize(dev)
+            upload_s = time.perf_counter() - s
+            if any(tables[k] is not base[k] for k in base):
+                raise AssertionError(f"{label}: a base table was uploaded "
+                                     f"again")
+            runs = []
+            for _ in range(REPS + 1):
+                s = time.perf_counter()
+                out, _ = B.run_local(rw.query, rw.db, device=dev)
+                runs.append((time.perf_counter() - s) * 1e3)
+            walls[den] = statistics.median(runs[1:])
+            est = rw.finalize(out)
+            widths[den] = est.rel_width
+            if den == 1 and not same_bytes(out, exact):
+                raise AssertionError(f"{label}: differs from the exact plan")
+            # the interval [est - hw, est + hw] against phase 5's answer, up
+            # to the repo's float tolerance (a fully sampled count is n/m
+            # summed m times: exact up to rounding, at width 0).  A 95 %
+            # interval misses 1 in 20, and a group's aggregates share its
+            # sample, so misses come a group at a time: the share is
+            # printed, and a broken estimate (a lost weight, a wrong
+            # stratum) is caught by holding every cell within 4 widths
+            covered = total = 0
+            for name_t, _ in rw.targets:
+                hw = est.half_width[name_t]
+                for i in range(len(est.result[name_t])):
+                    j = i if q == 6 else int(np.flatnonzero(
+                        (truth["l_returnflag"] ==
+                         est.result["l_returnflag"][i]) &
+                        (truth["l_linestatus"] ==
+                         est.result["l_linestatus"][i]))[0])
+                    want = float(truth[name_t][j])
+                    err = abs(float(est.result[name_t][i]) - want)
+                    width = float(hw[i]) if den > 1 else 0.0
+                    slack = 1e-7 * abs(want)
+                    total += 1
+                    covered += bool(err <= width + slack)
+                    if err > 4 * width + slack:
+                        raise AssertionError(
+                            f"{label} {name_t}[{i}]: estimate off by {err} "
+                            f"against a half-width of {width}")
+            log(f"{label}: sample built on the host in {build_s:.2f} s, "
+                f"{gb:.3f} GB, uploaded in {upload_s:.2f} s beside the "
+                f"resident base tables; warm wall median of {REPS} "
+                f"{walls[den]:.2f} ms (exact plan {exact_ms:.2f} ms); max "
+                f"relative CI half-width {widths[den]:.3e}; the interval "
+                f"covers phase 5's exact answer in {covered} of {total} "
+                f"(group, aggregate) cells, every cell within 4 "
+                f"half-widths ({card})")
+        dens = list(sampling.LADDER)
+        if any(widths[a] < widths[b] for a, b in zip(dens, dens[1:])) or \
+                widths[1] != 0.0:
+            raise AssertionError(f"q{q}: the CI width grew as the sample "
+                                 f"grew: {widths}")
+        # where a rung's time goes against the exact plan's: the device
+        # time by kernel of the 1/2 rung and of the exact plan
+        half = rewrite_for_rung(t.query, db, 2)
+        for what, fn in (("rung 1/2", lambda: B.run_local(
+                half.query, half.db, device=dev)),
+                         ("exact", lambda: B.run_local(t.query, db,
+                                                       device=dev))):
+            by = device_time_by_kernel(fn)
+            top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+            log(f"SF {SF_TIMED} q{q} {what}: device busy "
+                f"{sum(by.values()):.2f} ms in {len(by)} kernels; top "
+                f"{json.dumps({k[:70]: round(v, 2) for k, v in top})}")
+        log(f"SF {SF_TIMED} q{q}: the 1/16 rung ({walls[16]:.2f} ms) is "
+            f"{'faster' if walls[16] < exact_ms else 'not faster'} than the "
+            f"exact plan ({exact_ms:.2f} ms); rung 1 byte-identical to it")
+        ans = counted(tally, lambda: ProgressiveRunner(
+            db, tolerance=0.0, device=dev).run(t.query))
+        got_w = [a.ci_width for a in ans.report.attempts]
+        if [a.rung for a in ans.report.attempts] != dens or \
+                not np.allclose(got_w, [widths[d] for d in dens],
+                                rtol=1e-7, atol=0.0) or \
+                not same_bytes(ans.result, exact):
+            raise AssertionError(f"q{q}: ProgressiveRunner's climb differs "
+                                 f"from the rungs run alone")
+        ans = counted(tally, lambda: ProgressiveRunner(
+            db, tolerance=APPROX_TOLERANCE, device=dev).run(t.query))
+        esc = srv.approx_escalations
+        counted(tally, lambda: srv.submit(q, tolerance=APPROX_TOLERANCE))
+        climbed = srv.approx_escalations - esc
+        if sampling.LADDER[climbed] != ans.rung:
+            raise AssertionError(f"q{q}: the server answered at rung "
+                                 f"1/{sampling.LADDER[climbed]}, the runner "
+                                 f"at 1/{ans.rung}")
+        if not same_bytes(srv.submit(q, tolerance=0.0), srv.submit(q)):
+            raise AssertionError(f"q{q}: the server's rung 1 differs from "
+                                 f"its exact answer")
+        log(f"SF {SF_TIMED} q{q}: ProgressiveRunner climbs 1/16 .. 1/1 with "
+            f"the same widths and ends byte-identical to the exact plan; at "
+            f"tolerance {APPROX_TOLERANCE} it and QueryServer.submit answer "
+            f"at rung 1/{ans.rung} (width {ans.ci_width:.3e}); the server's "
+            f"tolerance-0 answer byte-identical to its exact one")
+        srv.cache.clear()
+        sampling.invalidate(db)
+        del rw, half, tables, ans
+        gc.collect()
+        torch.cuda.empty_cache()
+    for den in sampling.LADDER[:-1]:
+        if rewrite_for_rung(TEMPLATES[18].query, db, den) is not None:
+            raise AssertionError(f"q18 rewrote onto rung 1/{den}")
+    refused = srv.approx_refused
+    if not same_bytes(srv.submit(18, tolerance=APPROX_TOLERANCE),
+                      srv.submit(18)) or srv.approx_refused != refused + 1:
+        raise AssertionError("q18: not served exact as a refused shape")
+    log(f"SF {SF_TIMED} q18: every sampled rung refused (its grouped sum "
+        f"feeds a HAVING filter), served exact, approx_refused counted")
+    return tally
+
+
+def progressive_on_group(dev, db) -> dict:
+    """7c.4: each rung of Q1, Q6 and the shuffled supplier revenue on a
+    ThreadGroup of 4 at SF 1, against the same rung on one device.
+    Returns the kernels that the runs on the group launched."""
+    from repro_torch.approx import ProgressiveRunner, sampling
+    from repro_torch.approx.rewrite import rewrite_for_rung
+    from repro_torch.core import backend as B
+    from repro_torch.core import comm, planner
+    from repro_torch.serve import TEMPLATES
+    group = comm.ThreadGroup(4, dev)
+    queries = {"q1": TEMPLATES[1].query, "q6": TEMPLATES[6].query,
+               "supplier revenue": planner.compile_query(
+                   supplier_revenue, name="supplier_revenue")}
+    t0 = time.perf_counter()
+    tally = {}
+    for name, q in queries.items():
+        for den in sampling.LADDER:
+            label = f"SF {SF_MAIN} N=4 {name} rung 1/{den}"
+            rw = rewrite_for_rung(q, db, den)
+            one = rw.finalize(B.run_local(rw.query, rw.db, device=dev)[0])
+            got, _, overflow = counted(tally, lambda: B.run_distributed(
+                rw.query, rw.db, group))
+            dist = rw.finalize(got)
+            if overflow:
+                raise AssertionError(f"{label}: capacity overflow")
+            same_plan_result(dist.result, one.result, label)
+            if set(dist.result) != set(one.result) or not math.isclose(
+                    dist.rel_width, one.rel_width, rel_tol=1e-7):
+                raise AssertionError(f"{label}: width {dist.rel_width} "
+                                     f"against {one.rel_width}")
+        a = counted(tally, lambda: ProgressiveRunner(
+            db, group=group, tolerance=APPROX_TOLERANCE, device=dev).run(q))
+        b = ProgressiveRunner(db, tolerance=APPROX_TOLERANCE,
+                              device=dev).run(q)
+        if a.rung != b.rung:
+            raise AssertionError(f"{name}: rung 1/{a.rung} on 4 ranks, "
+                                 f"1/{b.rung} on one device")
+        same_plan_result(a.result, b.result, f"SF {SF_MAIN} N=4 {name}")
+    sampling.invalidate(db)
+    log(f"SF {SF_MAIN} ProgressiveRunner on a ThreadGroup of 4: every rung "
+        f"of Q1, Q6 and the shuffled supplier revenue equals the same rung "
+        f"on one device (integers exactly, floats and CI widths rtol 1e-7), "
+        f"and each answers at the same rung at tolerance "
+        f"{APPROX_TOLERANCE} ({time.perf_counter() - t0:.1f} s)")
+    return tally
+
+
+def hash_stream(dev, db) -> dict:
+    """7c.5: one pass of the stream under hash joins at SF 1 against the
+    sorted server's.  Returns the kernels the hash server launched."""
+    from repro_torch.serve import QueryServer
+    reqs = serve_stream()
+    want = QueryServer(db, device=dev).serve(reqs)
+    tally = {}
+    srv = QueryServer(db, join_method="hash", device=dev)
+    got = counted(tally, lambda: srv.serve(reqs))
+    for (t, b), g, w in zip(reqs, got, want):
+        same_plan_result(g, w, f"SF {SF_MAIN} serve {t.name} join=hash")
+    log(f"SF {SF_MAIN} serve join=hash: {len(reqs)} requests equal the "
+        f"sorted server's (integers exactly, floats rtol 1e-7)")
+    return tally
+
+
+def run_serving(dev, db10, db1, results, card) -> dict[str, int]:
+    """Phase 7c: serving and approximate answers (``repro_torch.serve``,
+    ``repro_torch.approx``) on the SF 10 tables, uploaded once; SF 1 for
+    the batch's reckoning, the ThreadGroup and the hash joins.  Returns the
+    launch counts of the phase."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import backend as B
+    from repro_torch.core import planner
+    from repro_torch.serve import QueryServer
+    planner.invalidate_stats(db10)      # frees phase 7b's shards and tables
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    s = time.perf_counter()
+    B.device_tables(db10, dev)
+    torch.cuda.synchronize(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    log(f"SF {SF_TIMED} serve: tables uploaded once in "
+        f"{time.perf_counter() - s:.1f} s, {resident / 1e9:.2f} GB resident")
+    K.reset_launches()
+    seq, seq_ms, serve_peak, serving = serve_sf10(dev, db10, results, card)
+    log(f"launches on the serving path (SF {SF_TIMED}, 1 cold + {REPS} warm "
+        f"+ 1 profiled + 1 degraded pass, the server's calls alone): "
+        f"{json.dumps(serving)}")
+    require_launches(serving, ("segsum_sum", "segsum_count", "segsum_minmax",
+                               "hash_insert"), "the serving path")
+    # the memo's peak: measured at SF 1, scaled by 10
+    ms1, seq1, extra1 = run_batch(dev, db1, f"SF {SF_MAIN}")
+    reckoned = resident + extra1 * SF_TIMED / SF_MAIN
+    if reckoned <= BATCH_MAX_BYTES:
+        ms, _, extra = run_batch(dev, db10, f"SF {SF_TIMED}", seq)
+        seq_total, sf = sum(seq_ms.values()), SF_TIMED
+    else:
+        ms, seq_total, extra, sf = ms1, seq1, extra1, SF_MAIN
+    log(f"batch: reckoned from SF {SF_MAIN} at {reckoned / 1e9:.2f} GB with "
+        f"the resident SF {SF_TIMED} tables (limit "
+        f"{BATCH_MAX_BYTES / 1e9:.0f}), so it ran at SF {sf}: {ms:.1f} ms "
+        f"against {seq_total:.1f} ms for the requests run alone, memo peak "
+        f"{extra / 1e9:.2f} GB above the resident tables ({card})")
+    approximate = approx_sf10(dev, db10, results, card)
+    require_launches(approximate, ("segsum_sum", "segsum_count"),
+                     "the approximate path")
+    ranked = progressive_on_group(dev, db1)
+    require_launches(ranked, ("counting_rank",), "the progressive "
+                     "ThreadGroup path")
+    hashed = hash_stream(dev, db1)
+    require_launches(hashed, ("hash_probe64",), "the hash-join stream")
+    counts = dict(K.launches)
+    log(f"launches on phase 7c: {json.dumps(counts)}; ProgressiveRunner "
+        f"and submit(tolerance=) at SF {SF_TIMED} alone "
+        f"{json.dumps(approximate)}; the ThreadGroup runs alone "
+        f"{json.dumps(ranked)}; the hash server alone {json.dumps(hashed)}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    foot = QueryServer(db10, device=dev).footprint_bytes()
+    log(f"SF {SF_TIMED} serve: QueryServer.footprint_bytes() "
+        f"{foot / 1e9:.2f} GB (tables x (1 + capacity factor 2)) against "
+        f"{resident / 1e9:.2f} GB resident and {serve_peak / 1e9:.2f} GB "
+        f"peak over the serving passes ({peak / 1e9:.2f} GB over the whole "
+        f"phase, the sample ladders included) ({card})")
+    planner.invalidate_stats(db1)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the last two kernels at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1405,14 +1909,16 @@ def main() -> int:
     results = run_timed(dev, db10, sql)
     dist_counts = run_distributed_path(dev, db1, refs)
     snapshot_bytes = reckon_snapshot_bytes(dev, db1)
-    del db1
+    from repro_torch.core import planner
+    planner.invalidate_stats(db1)       # phase 7c uploads it again
     run_distributed_timed(dev, db10, results)
     run_recovery(dev, db10, results, snapshot_bytes, card)
+    run_serving(dev, db10, db1, results, card)
+    del db1
 
     # phases 8 and 9 run with the SF 10 tables freed
     probe_np = db10.tables["lineitem"]["l_orderkey"]
     build_np = db10.tables["orders"]["o_orderkey"]
-    from repro_torch.core import planner
     planner.invalidate_stats(db10)
     del db10, results
     gc.collect()

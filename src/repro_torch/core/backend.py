@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Callable, Sequence
 
 import numpy as np
@@ -42,7 +43,7 @@ __all__ = [
     "PlanStats", "RefContext", "LocalContext", "DistContext",
     "run_reference", "run_local", "run_distributed",
     "device_tables", "device_shards", "release_shards", "partition_database",
-    "hash_partition_np", "PARTITION_KEYS",
+    "hash_partition_np", "PARTITION_KEYS", "result_table", "derive_database",
 ]
 
 _YEAR_LUT = None
@@ -679,21 +680,51 @@ def run_reference(query_fn, db: Database, wire_format: str | None = None,
 
 
 _DEVICE_TABLES = "_device_tables"
+_DEVICE_BASE = "_device_base"
+
+
+def derive_database(db: Database, tables: dict[str, dict]) -> Database:
+    """A sibling of ``db`` holding ``db``'s tables plus ``tables`` (a sample
+    rung, say).  Its device tables and shards reuse ``db``'s resident
+    tensors for every table the two share, so deriving uploads only the new
+    tables; the base is held weakly, so a sibling never keeps it alive."""
+    out = Database(tables={**db.tables, **tables}, dicts=db.dicts,
+                   scale=db.scale)
+    out.__dict__[_DEVICE_BASE] = weakref.ref(db)
+    return out
+
+
+def _split_shared(db: Database):
+    """``(base, own)``: the live base ``db`` was derived from (or None) and
+    the tables of ``db`` it does not share with that base."""
+    ref = db.__dict__.get(_DEVICE_BASE)
+    base = ref() if ref is not None else None
+    if base is None:
+        return None, db.tables
+    return base, {name: t for name, t in db.tables.items()
+                  if base.tables.get(name) is not t}
 
 
 def device_tables(db: Database, device: torch.device) -> dict[str, Table]:
     """``db``'s tables as padded device Tables, uploaded once per device and
     cached on ``db`` (dropped by ``planner.invalidate_stats`` with the
-    planner's own caches), so the data stays resident between queries."""
+    planner's own caches), so the data stays resident between queries.  A
+    database made by :func:`derive_database` holds its base's Tables (the
+    same objects) beside its own."""
     cache = db.__dict__.setdefault(_DEVICE_TABLES, {})
     key = str(device)
     if key not in cache:
+        base, own = _split_shared(db)
         out = {}
-        for name, t in db.tables.items():
+        if base is not None:
+            shared = device_tables(base, device)
+            out = {name: shared[name] for name in db.tables
+                   if name not in own}
+        for name, t in own.items():
             n = len(next(iter(t.values())))
             cap = max(8, int(math.ceil(n / 8)) * 8)
             out[name] = from_numpy(t, capacity=cap, device=device)
-        cache[key] = out
+        cache[key] = {name: out[name] for name in db.tables}
     return cache[key]
 
 
@@ -713,6 +744,15 @@ def _as_column(v, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=dtype, device=device).reshape(1)
 
 
+def result_table(out, device: torch.device) -> Table:
+    """A plan's output as a compact Table: a ScalarResult's dict of scalars
+    becomes one row."""
+    if isinstance(out, dict):
+        out = Table({k: _as_column(v, device) for k, v in out.items()},
+                    torch.ones((), dtype=torch.int32, device=device))
+    return rel.ensure_compact(out)
+
+
 def run_local(query_fn, db: Database, join_method: str = "sorted",
               capacity_factor: float = 2.0, wire_format: str | None = None,
               chaos=None, return_overflow: bool = False,
@@ -728,11 +768,7 @@ def run_local(query_fn, db: Database, join_method: str = "sorted",
                        capacity_factor=capacity_factor,
                        join_method=join_method, wire_format=wire_format)
     ctx.chaos = chaos
-    out = query_fn(ctx)
-    if isinstance(out, dict):
-        out = Table({k: _as_column(v, dev) for k, v in out.items()},
-                    torch.ones((), dtype=torch.int32, device=dev))
-    result = to_numpy(rel.ensure_compact(out))
+    result = to_numpy(result_table(query_fn(ctx), dev))
     if bool(ctx.corrupt):
         raise wi.CorruptPayload("local run: payload integrity check failed")
     overflow = bool(ctx.overflow)
@@ -822,23 +858,30 @@ def device_shards(db: Database, device: torch.device, n: int,
 
     Uploaded once per rank and cached on ``db`` per (device, n, partition
     keys); dropped by ``planner.invalidate_stats`` with the planner's own
-    caches."""
+    caches.  A database made by :func:`derive_database` partitions only its
+    own tables and holds its base's shards beside them."""
     cache = db.__dict__.setdefault(_DEVICE_SHARDS, {})
     key = (str(device), n, tuple(sorted((partition_keys or {}).items())))
     held = cache.setdefault(key, {})
     todo = [d for d in (range(n) if ranks is None else ranks)
             if d not in held]
     if todo:
-        sharded, caps = partition_database(db, n, partition_keys)
+        base, own = _split_shared(db)
+        shared = device_shards(base, device, n, partition_keys, todo) \
+            if base is not None else {}
+        sharded, caps = partition_database(
+            Database(own, db.dicts, db.scale), n, partition_keys)
         for d in todo:
-            held[d] = {}
+            mine = {}
             for name, cols in sharded.items():
                 lo, hi = d * caps[name], (d + 1) * caps[name]
-                held[d][name] = Table(
+                mine[name] = Table(
                     {c: torch.from_numpy(v[lo:hi]).to(device)
                      for c, v in cols.items() if c != "__count"},
                     torch.tensor(int(cols["__count"][d]), dtype=torch.int32,
                                  device=device))
+            held[d] = {name: mine[name] if name in mine else shared[d][name]
+                       for name in db.tables}
     return held
 
 
@@ -905,11 +948,7 @@ def run_distributed(query_fn, db: Database, group_or_n,
                           packed_exchange=packed_exchange,
                           join_method=join_method, wire_format=wire_format)
         ctx.chaos = chaos
-        out = query_fn(ctx)
-        if isinstance(out, dict):
-            out = Table({k: _as_column(v, dev) for k, v in out.items()},
-                        torch.ones((), dtype=torch.int32, device=dev))
-        out = rel.ensure_compact(out)
+        out = result_table(query_fn(ctx), dev)
         flags = g.all_reduce(torch.stack([ctx.overflow, ctx.corrupt])
                              .to(torch.int32), "max")
         return to_numpy(out), ctx.stats, flags.tolist()

@@ -60,13 +60,13 @@ __all__ = [
     "scan", "col", "lit", "scode", "isin", "like", "starts_with",
     "ends_with", "alpha_rank", "year", "where", "db_scale", "result",
     "param",
-    # reserved sample-ladder bookkeeping columns (repro.approx)
+    # reserved sample-ladder bookkeeping columns (repro_torch.approx)
     "SAMPLE_WEIGHT_COL", "SAMPLE_M_COL", "SAMPLE_N_COL",
 ]
 
 # Reserved column names carried by stratified sample tables
-# (repro.approx.sampling): the Horvitz-Thompson scale-up weight n_g/m_g, the
-# pre-filter per-stratum sample size m_g, and the true stratum size n_g.
+# (repro_torch.approx.sampling): the Horvitz-Thompson scale-up weight n_g/m_g,
+# the pre-filter per-stratum sample size m_g, and the true stratum size n_g.
 # Plan authors must not define columns with these names.
 SAMPLE_WEIGHT_COL = "__sw"
 SAMPLE_M_COL = "__sm"
@@ -211,8 +211,8 @@ class Param(Expr):
     """Named runtime parameter of a plan *template*.
 
     A plan containing ``Param`` nodes is a TEMPLATE: one logical DAG (and one
-    jit trace, through ``repro.serve``) serves every parameter binding.  The
-    placeholder carries its DOMAIN, not a value:
+    preparation, through ``repro_torch.serve``) serves every parameter
+    binding.  The placeholder carries its DOMAIN, not a value:
 
       * ``lo`` / ``hi`` declare the closed interval every future binding must
         fall in.  The planner folds the **domain** — never any single binding

@@ -1418,14 +1418,18 @@ class CompiledQuery:
     def approximate(self, db, den: int, seed: int | None = None,
                     min_rows: int | None = None, tables=None):
         """Sample-ladder rewrite of this plan onto rung ``1/den`` against
-        ``db`` (``repro.approx.rewrite``): the aggregation's scan moves onto
-        a stratified sample with scale-up + CLT moment columns injected.
+        ``db`` (``repro_torch.approx.rewrite``): the aggregation's scan moves
+        onto a stratified sample with scale-up + CLT moment columns injected.
         Returns an ``ApproxRewrite`` or None when the shape is non-estimable
         (min/max, semi/anti-dependent counts, tiny domains) and must run
         exact."""
-        raise NotImplementedError(
-            "approximate answers are not ported to repro_torch yet "
-            "(ROADMAP A9)")
+        from repro_torch.approx import rewrite as _ar  # approx imports us
+        kwargs = {}
+        if seed is not None:
+            kwargs["seed"] = seed
+        if min_rows is not None:
+            kwargs["min_rows"] = min_rows
+        return _ar.rewrite_for_rung(self, db, den, tables=tables, **kwargs)
 
     def static_counts(self) -> dict[str, int]:
         return static_plan_stats(self.plan)

@@ -315,9 +315,23 @@ class QueryRunner:
             wire_format=wire_format, chaos=self.chaos)
         return result, stats, overflow, 0
 
-    def run(self, query_fn) -> RunResult:
-        """Execute ``query_fn`` (a plain ``fn(ctx)`` or a compiled query)
-        under the retry policy."""
+    def run(self, query_fn, bindings: dict | None = None) -> RunResult:
+        """Execute ``query_fn`` under the retry policy.
+
+        ``query_fn`` may be a plain ``fn(ctx)``, a compiled query, or a
+        parameterized plan template (``repro_torch.serve.PlanTemplate``); in
+        the template case pass the parameter values as ``bindings`` — they
+        are bound ONCE here (domain-validated at bind time) and every retry,
+        capacity escalation and hint-drop recompilation reuses the same
+        bound query, so recovery can never silently change the answer the
+        caller asked for."""
+        if bindings is not None:
+            if not hasattr(query_fn, "bind"):
+                raise TypeError(
+                    "bindings= requires a parameterized plan template "
+                    "(repro_torch.serve.PlanTemplate); got "
+                    f"{type(query_fn).__name__}")
+            query_fn = query_fn.bind(**bindings)
         policy = self.policy
         factor = self.capacity_factor
         wire_format = self.wire_format

@@ -50,7 +50,6 @@ import torch
 
 from repro_torch.core import backend as B
 from repro_torch.core import plan as qp
-from repro_torch.core import relational as rel
 from repro_torch.core.planner import _walk_signature
 from repro_torch.core.table import Table, resolve_device, to_numpy
 from repro_torch.core.wire import CorruptPayload
@@ -311,11 +310,7 @@ def run_resumable(query_fn, db, store: LineageStore,
     ctx.chaos = chaos
     ctx.lineage = store
     ctx.lineage_devices = int(n_devices)
-    out = query_fn(ctx)
-    if isinstance(out, dict):
-        out = Table({k: B._as_column(v, dev) for k, v in out.items()},
-                    torch.ones((), dtype=torch.int32, device=dev))
-    out = rel.ensure_compact(out)
+    out = B.result_table(query_fn(ctx), dev)
     if bool(ctx.corrupt):
         raise CorruptPayload("resumable run: payload integrity check failed")
     return (to_numpy(out), ctx.stats, bool(ctx.overflow), store.reused)

@@ -799,3 +799,83 @@ def test_model_forward_on_card_with_and_without_kernel(cuda, monkeypatch):
     gen = serve_lm.generate(model, tokens[:, :32], 8, 0.8,
                             torch.Generator(device=cuda).manual_seed(1))
     assert gen.tokens.shape == (2, 8) and gen.tokens.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# serving and approximate answers on the card
+# ---------------------------------------------------------------------------
+
+def _serve_stream():
+    """Every sample of all 22 templates, round-robin (29 requests)."""
+    from repro_torch import serve
+    per = [[(t, s) for s in t.samples]
+           for _, t in sorted(serve.TEMPLATES.items())]
+    out, i = [], 0
+    while any(per):
+        if per[i % len(per)]:
+            out.append(per[i % len(per)].pop(0))
+        i += 1
+    return out
+
+
+def _same_bytes(got, want, label):
+    assert set(got) == set(want), label
+    for k in want:
+        assert got[k].dtype == want[k].dtype, (label, k)
+        assert got[k].tobytes() == want[k].tobytes(), (label, k)
+
+
+@pytest.fixture(scope="module")
+def serve_db():
+    return tpch.generate(0.05, seed=11)
+
+
+def test_served_stream_equals_run_local_on_card(cuda, serve_db):
+    """The prepared path on the card: one preparation per template, and
+    every served result byte-identical to run_local of the bound template
+    (bindings enter as 0-d device tensors there, Python numbers here)."""
+    from repro_torch import serve
+    reqs = _serve_stream()
+    srv = serve.QueryServer(serve_db)
+    assert srv.device.type == "cuda"
+    for _ in range(2):
+        got = srv.serve(reqs, infer=True)
+    assert srv.recompiles == len(serve.TEMPLATES)
+    assert srv.cache_hits == 2 * len(reqs) - len(serve.TEMPLATES)
+    for (t, s), out in zip(reqs, got):
+        want, _ = B.run_local(t.bind(**s).with_inference(True), serve_db)
+        _same_bytes(out, want, (t.name, s))
+
+
+def test_batch_equals_sequential_on_card(cuda, serve_db):
+    from repro_torch import serve
+    reqs = _serve_stream()
+    bx = serve.BatchExecutor(serve_db)
+    got = bx.run_batch(reqs, infer=True)
+    assert bx.shared_hits > 0
+    for (t, s), out in zip(reqs, got):
+        want, _ = B.run_local(t.bind(**s).with_inference(True), serve_db)
+        _same_bytes(out, want, (t.name, s))
+
+
+@pytest.mark.parametrize("qid", [1, 6, 18])
+def test_rung1_identity_on_card(cuda, serve_db, qid):
+    from repro_torch.approx.rewrite import rewrite_for_rung
+    rw = rewrite_for_rung(QUERIES[qid], serve_db, 1)
+    exact, _ = B.run_local(QUERIES[qid], serve_db)
+    got, _ = B.run_local(rw.query, rw.db)
+    _same_bytes(got, exact, f"q{qid} rung 1")
+    # the rung's device tables are the base's resident tensors plus one
+    base = B.device_tables(serve_db, cuda)
+    rung = B.device_tables(rw.db, cuda)
+    assert all(rung[t] is base[t] for t in base)
+
+
+def test_serve_tolerance_on_card(cuda, serve_db):
+    from repro_torch import serve
+    srv = serve.QueryServer(serve_db)
+    approx = srv.submit(6, tolerance=0.0)
+    _same_bytes(approx, srv.submit(6), "q6 rung 1 against exact")
+    assert srv.approx_escalations == 4
+    srv.submit(18, tolerance=0.5)
+    assert srv.approx_refused == 1

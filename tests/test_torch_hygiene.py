@@ -1,6 +1,7 @@
-"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
-port's timing tools (``tools/time_*.py``) never import ``jax`` or anything
-of the reference package ``repro``."""
+"""Import hygiene of the port: ``repro_torch`` (its serving and
+approximate layers included), ``chip_smoke.py`` and the port's timing tools
+(``tools/time_*.py``) never import ``jax`` or anything of the reference
+package ``repro``."""
 import os
 import re
 import subprocess
@@ -48,6 +49,17 @@ res = runner.run(sql_queries()[10])
 assert res.report.outcomes() == ["transient", "corrupt", "overflow", "ok"]
 assert [len(res.result[k]) for k in res.result] == \
     [len(want["revenue"])] * len(res.result)
+from repro_torch import approx
+from repro_torch.launch import report
+from repro_torch.serve import QueryServer, TEMPLATES
+srv = QueryServer(db, device="cpu")
+q6 = srv.submit(6, {"q6_qty": 25})
+bound, _ = B.run_local(TEMPLATES[6].bind(q6_qty=25), db, device="cpu")
+assert q6["revenue"].tobytes() == bound["revenue"].tobytes()
+est = srv.submit(1, tolerance=0.5)
+assert srv.approx_served == 1 and len(est["sum_qty"]) > 0
+assert approx.ProgressiveRunner(db, device="cpu", tolerance=0.0).run(
+    QUERIES[6]).exact
 import dataclasses
 import torch
 from repro_torch import configs

@@ -52,3 +52,23 @@ def test_layout_floor_counts_sectors_per_warp_and_bucket():
     sectors = (int(fill[b]) * 4 + 31) // 32
     assert T.layout_floor(probe, bkeys, fill) == \
         (sectors + 2) * 32 + 32 * 8
+
+
+def test_time_sampling_runs_both_selection_paths():
+    """tools/time_sampling.py times the parts of the selection, the
+    reference's numbering of the strata beside the port's, and checks the
+    two give the same ids."""
+    import json
+    import subprocess
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, str(root / "tools" /
+                                              "time_sampling.py"),
+                          "--rows", "20000"], capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["rows"] == 20000
+    assert set(out) == {"rows", "q1 strata (3 x 2 keys)", "q6 (one stratum)"}
+    parts = {"reference numbering", "port numbering", "hash",
+             "lexsort, int64 ids", "lexsort, narrowest ids", "selection"}
+    assert all(set(v) == parts for k, v in out.items() if k != "rows")
