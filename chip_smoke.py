@@ -56,23 +56,19 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      run, peak device memory, each result equal to phase 5's.  The ranks'
      work is serialised on one card: these are times of the distributed
      code path, not of a cluster;
- 7b. recovery (``repro_torch.distributed``) at SF 10 on Q5, Q9 and Q18,
-     with launch counters reset just before and read just after: the
+ 7b. recovery (``repro_torch.distributed``) on Q5, Q9 and Q18, with
+     launch counters reset just before and read just after: at SF 10 the
      default fault plan (a transient, a corrupt and an overflow) through
      ``QueryRunner`` on a ThreadGroup of 4, each fault fired, the corrupt
      one a real bit flip of a checksummed exchange on the card where the
      plan's first group-by exchanges (Q5, Q9), the final attempt
      byte-identical to a clean run with its wire format and capacity
-     factor; a device loss 4 -> 3 (rank 3 at the first exchange), the
-     recovered result byte-identical to a clean run on 3 ranks and equal to
-     phase 5's, with each attempt's wall time, the resident GB before and
-     after the shrink and the re-partition and upload time at N = 3; then
-     lineage snapshots (``run_resumable`` on the card, a ``LineageStore``
-     under ``build/``): snapshot count, bytes and write time, a resumed run
-     byte-identical and reusing a snapshot, full re-execution and resume
-     times, and a store written at width 8 resumed at 5 (re-sharded).  The
-     snapshot bytes are reckoned from SF 1's snapshots before the first
-     write; above ``LINEAGE_MAX_BYTES`` the lineage part runs at SF 1;
+     factor; a device loss 4 -> 3 (rank 3 at the first exchange) of Q9 at
+     SF 10 and of Q5 and Q18 at SF 1, the recovered result byte-identical
+     to a clean run on 3 ranks and equal to phase 5's (SF 10) or the
+     reference's (SF 1), with each attempt's wall time (the second's is
+     the re-partition and upload at N = 3) and the resident GB before and
+     after the shrink (lineage resumes are phase 10's ``bench_recovery``);
   7c. serving and approximate answers (``repro_torch.serve``,
      ``repro_torch.approx``) on the SF 10 tables, uploaded once, with launch
      counters reset just before and read just after: the reference's
@@ -86,17 +82,29 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      ``BatchExecutor`` over the stream, its memo's peak reckoned from SF 1
      first and run at SF 10 where it fits under ``BATCH_MAX_BYTES`` with
      the resident tables, each result byte-identical to the request run
-     alone; Q1 and Q6 on every rung of the sample ladder (host build time,
-     rung GB, warm wall, max relative CI half-width, the share of cells
-     whose interval covers phase 5's exact answer, beside the exact plan's
-     wall), rung 1 byte-identical to the exact plan, widths that never grow
-     with the sample, ``ProgressiveRunner`` and
-     ``QueryServer.submit(tolerance=)`` answering at the same rung, Q18
-     refused on every sampled rung and served exact; at SF 1 every rung of
-     Q1, Q6 and a shuffled per-supplier revenue on a ThreadGroup of 4 equal
-     to the same rung on one device (the counting rank launched), and the
+     alone; Q1 and Q6 at SF 10 and SF 1 through ``ProgressiveRunner`` and
+     ``QueryServer.submit(tolerance=)``, both answering at the same rung
+     (at SF 10 the 1/16 rung, whose sample phase 10 reuses), at SF 1 also
+     ``ProgressiveRunner`` climbing the whole ladder with each rung's width
+     equal to the rung run alone and ending byte-identical to the exact
+     plan, and Q18 served exact as a refused shape (each rung's wall,
+     width and coverage are phase 10's ``bench_approx``); at SF 1 every
+     rung of Q1, Q6 and a shuffled per-supplier revenue on a ThreadGroup of
+     4 equal to the same rung on one device (the counting rank launched),
+     and the
      stream under hash joins equal to the sorted server's (the 64-bit probe
      launched); ``footprint_bytes()`` beside the resident and peak GB;
+ 10. (run after 7c, SF 10 still resident) the paper's benches,
+     ``repro_torch.bench.run``'s 13, in this process, at ``BENCH_ARGS``'
+     sizes: the recovery and ladder benches at SF 10 (the 1/16 rungs and
+     their stratum ranks phase 7c's; each lineage resume byte-identical to
+     the full run), then, with SF 10 off the card, the rest in ``run``'s
+     order at SF 1 and the reference's sizes, the gated ones with
+     ``--check`` (any failed gate or error fails the run) but
+     ``bench_sort_tax``, whose budgets are counts at sf 0.005 that Q3 and
+     Q13 exceed at SF 1 (reported, not gated here; the CPU tests hold the
+     gate): their CSV and report lines and each bench's seconds, reports
+     under ``results/torch``;
   8. with the SF 10 tables freed: the 32-bit hash probe against its plain
      version, bit for bit, over SF 10's l_orderkey (60 M) probing
      o_orderkey (15 M) as int32 at caps 8, 16, 32 and 64, every design with
@@ -149,10 +157,8 @@ SF_MAIN = 1.0
 SF_TIMED = 10.0
 SEED = 11
 REPS = 3
-# phase 7b: the queries the reference's recovery benchmark gates, and the
-# most snapshot bytes the lineage part writes at SF 10
+# phase 7b: the queries the reference's recovery benchmark gates
 RECOVERY_QUERIES = (5, 9, 18)
-LINEAGE_MAX_BYTES = 16e9
 # phase 7c: the queries answered off the sample ladder, the most device
 # memory the batch's memo may reach beside the resident SF 10 tables (above
 # it the batch runs at SF 1), and the tolerance of the served approximate
@@ -179,10 +185,40 @@ FLASH_BF16_ATOL = 2e-5
 # prefill's last-token logits against forward's (readings 3.1e-6 and 0; bf16
 # rounding alone moves the logits 1.77e-2)
 LM_F32_REL_L2 = 1e-4
+# phase 10: each bench's arguments: SF 1 at the main path's seed; the NumPy
+# baseline at SF 0.1, where its 3 x 22 reference runs take seconds on the
+# host, not minutes; the IR-only wire bytes and the exchange sweeps at the
+# reference's sizes; the kernels at SF 1's lineitem rows and the LM path's
+# attention shape; the sort tax at SF 1 without its gate (its budgets are
+# counts at sf 0.005); the recovery and sample-ladder benches at SF 10,
+# where a query's run is no longer bound by launches and host overhead (at
+# SF 1 a whole query takes 3-8 ms on the card, a snapshot's restore as
+# long, and a rung plan's ~500 operations more than its device time), with
+# the reference's repetitions; the ladder's rungs share phase 7c's stratum
+# ranks
+_SF1 = ["--sf", str(SF_MAIN), "--seed", str(SEED)]
+BENCH_ARGS = {
+    "bench_tpch": _SF1,
+    "bench_baseline": ["--sf", "0.1", "--seed", str(SEED)],
+    "bench_kernels": ["--rows", "6000000",
+                      "--flash", ",".join(map(str, FLASH_SHAPE))],
+    "bench_skew": _SF1,
+    "bench_q12_plans": _SF1,
+    "bench_sort_tax": _SF1,
+    "bench_recovery": ["--sf", str(SF_TIMED), "--seed", str(SEED)],
+    "bench_serve": [*_SF1, "--baseline"],
+    "bench_approx": ["--sf", str(SF_TIMED), "--seed", str(SEED)],
+}
+BENCH_SF10 = ("bench_recovery", "bench_approx")
+BENCH_UNGATED = ("bench_sort_tax",)
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` after the seconds since the run started."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -213,24 +249,35 @@ def device_time_by_kernel(fn) -> dict[str, float]:
     """Device time (ms) of everything ``fn`` ran on the card, summed by
     kernel or copy name over the device events of a ``torch.profiler``
     trace (one stream, so they never overlap).  Every measured run launches
-    work on the card, so a trace with no device time means the profiler
-    failed: that raises."""
+    work on the card, so a trace with no device event is a failed trace:
+    it is logged (with what the trace did hold) and taken again, the last
+    time with the session held open 50 ms past the synchronise, for CUPTI
+    to deliver late records; three empty traces raise."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
-    if sum(by_name.values()) <= 0:
-        raise RuntimeError("torch.profiler recorded no device time for a run "
-                           "that launched work on the card")
-    return by_name
+    for attempt, hold in enumerate((0.0, 0.0, 0.05)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(hold)
+        by_name: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3
+        if sum(by_name.values()) > 0:
+            return by_name
+        kinds: dict[str, int] = {}
+        for k in prof.profiler.kineto_results.events():
+            kinds[str(k.device_type())] = kinds.get(str(k.device_type()),
+                                                    0) + 1
+        log(f"torch.profiler: trace {attempt + 1} (held {hold * 1e3:.0f} "
+            f"ms) recorded no device event; its raw events by device "
+            f"{json.dumps(kinds)}")
+    raise RuntimeError("torch.profiler recorded no device time for a run "
+                       "that launched work on the card, three times")
 
 
 def device_busy_ms(fn) -> float:
@@ -805,48 +852,16 @@ def run_distributed_timed(dev, db, results) -> None:
 # phase 7b: recovery
 # ---------------------------------------------------------------------------
 
-def dir_bytes(path) -> int:
-    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
-
-
-def reckon_snapshot_bytes(dev, db) -> float:
-    """The lineage snapshots Q5, Q9 and Q18 write at SF 10, reckoned from
-    the ones they write at SF 1 (a snapshot is a post-exchange table, whose
-    rows grow with the scale factor)."""
-    import shutil
-    import tempfile
-    from repro_torch.distributed.lineage import LineageStore, run_resumable
-    from repro_torch.queries import QUERIES
-    (ROOT / "build").mkdir(exist_ok=True)
-    work = tempfile.mkdtemp(prefix="lineage_sf1_", dir=ROOT / "build")
-    try:
-        for q in RECOVERY_QUERIES:
-            run_resumable(QUERIES[q], db, LineageStore(f"{work}/q{q}"),
-                          device=dev)
-        nbytes = dir_bytes(work)
-    finally:
-        shutil.rmtree(work)
-    reckoned = nbytes * SF_TIMED / SF_MAIN
-    log(f"lineage snapshots of Q5, Q9, Q18 at SF {SF_MAIN}: {nbytes / 1e9:.3f}"
-        f" GB, so {reckoned / 1e9:.2f} GB reckoned at SF {SF_TIMED} (limit "
-        f"{LINEAGE_MAX_BYTES / 1e9:.0f} GB)")
-    return reckoned
-
-
-def run_recovery(dev, db, results, snapshot_bytes, card) -> dict[str, int]:
-    """Phase 7b: the default fault plan and a device loss through
-    ``QueryRunner`` on 4 ranks, then lineage snapshots and resumes, at
-    SF 10.  Returns the launch counts of the phase."""
-    import shutil
-    import tempfile
+def run_recovery(dev, db, db1, results, refs) -> dict[str, int]:
+    """Phase 7b: the default fault plan through ``QueryRunner`` on 4 ranks
+    at SF 10; a device loss 4 -> 3 at SF 10 (Q9) and at SF 1 (``db1``, Q5
+    and Q18, held to the reference's ``refs``).  Lineage resumes are phase
+    10's ``bench_recovery``.  Returns the launch counts of the phase."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.core import backend as B
-    from repro_torch.data import tpch
-    from repro_torch.distributed.chaos import (ChaosInjector, FaultPlan,
-                                               FaultSpec, TransientFault)
+    from repro_torch.distributed.chaos import ChaosInjector, FaultPlan
     from repro_torch.distributed.fault import QueryRunner, RetryPolicy
-    from repro_torch.distributed.lineage import LineageStore, run_resumable
     from repro_torch.queries import QUERIES
     n = 4
 
@@ -893,18 +908,22 @@ def run_recovery(dev, db, results, snapshot_bytes, card) -> dict[str, int]:
             f"capacity factor {last.capacity_factor}, {last.wire_format} "
             f"wire, byte-identical to a clean run with both")
 
-    # a device loss 4 -> 3, each time from phase 7's resident 4-rank shards
-    for q in RECOVERY_QUERIES:
-        B.release_shards(db, dev, n - 1)
-        B.device_shards(db, dev, n)
+    # a device loss 4 -> 3: Q9, the deepest tree, at SF 10 from phase 7's
+    # resident 4-rank shards; Q5 and Q18 at SF 1, where the host's
+    # re-partition at N=3 is a tenth as long
+    for q, ddb, sf, truth in ((9, db, SF_TIMED, results),
+                              (5, db1, SF_MAIN, refs),
+                              (18, db1, SF_MAIN, refs)):
+        B.release_shards(ddb, dev, n - 1)
+        B.device_shards(ddb, dev, n)
         torch.cuda.synchronize(dev)
         before = gb()
-        runner = QueryRunner(db, n, device=dev, chaos=ChaosInjector(
+        runner = QueryRunner(ddb, n, device=dev, chaos=ChaosInjector(
             FaultPlan.device_loss(SEED, devices=(3,), cut="exchange")))
         res = runner.run(QUERIES[q])
         torch.cuda.synchronize(dev)
         after = gb()
-        label = f"SF {SF_TIMED} q{q} device loss {n} -> {n - 1}"
+        label = f"SF {sf} q{q} device loss {n} -> {n - 1}"
         if res.report.outcomes() != ["device_lost", "ok"] or \
                 (runner.devices, runner.topology_generation,
                  runner.lost_devices) != (n - 1, 1, (3,)):
@@ -912,107 +931,24 @@ def run_recovery(dev, db, results, snapshot_bytes, card) -> dict[str, int]:
                                  f"{res.report.outcomes()}, devices "
                                  f"{runner.devices}, lost "
                                  f"{runner.lost_devices}")
-        clean, _, overflow = B.run_distributed(QUERIES[q], db, n - 1,
+        clean, _, overflow = B.run_distributed(QUERIES[q], ddb, n - 1,
                                                device=dev)
         if overflow or not same_bytes(res.result, clean):
             raise AssertionError(f"{label}: differs from a clean run on "
                                  f"{n - 1} ranks")
-        compare(res.result, results[q], f"{label} vs run_local")
+        compare(res.result, truth[q], f"{label} vs "
+                f"{'run_local' if sf == SF_TIMED else 'the reference'}")
         walls = ", ".join(f"{a.outcome} {a.wall_s * 1e3:.1f} ms"
                           for a in res.report.attempts)
         log(f"{label}: attempts {walls} (the second re-partitions and "
             f"uploads at N={n - 1}); resident {before:.2f} GB before the "
             f"shrink, {after:.2f} GB after; byte-identical to a clean run on "
-            f"{n - 1} ranks, equal to run_local's")
-    B.release_shards(db, dev, n - 1)
+            f"{n - 1} ranks, equal to "
+            f"{'run_local' if sf == SF_TIMED else 'the reference'}'s")
+        B.release_shards(ddb, dev, n - 1)
+    B.release_shards(db1, dev, n)
     torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    B.device_shards(db, dev, n - 1)
-    torch.cuda.synchronize(dev)
-    log(f"SF {SF_TIMED}: re-partition and upload at N={n - 1}: "
-        f"{time.perf_counter() - t0:.2f} s, {gb():.2f} GB resident")
-    B.release_shards(db, dev, n - 1)
 
-    # lineage snapshots: written by a run that fails at finalize, then
-    # resumed, against full re-execution (the reference's bench_recovery)
-    class TimedStore(LineageStore):
-        """A store that adds up the time its snapshot writes take (the copy
-        to the host, the npy write and its CRC)."""
-        write_s = 0.0
-
-        def save(self, tag, table, ctx, node=None):
-            t = time.perf_counter()
-            super().save(tag, table, ctx, node)
-            self.write_s += time.perf_counter() - t
-
-    sf = SF_TIMED if snapshot_bytes <= LINEAGE_MAX_BYTES else SF_MAIN
-    ldb = db if sf == SF_TIMED else tpch.generate(SF_MAIN, seed=SEED)
-    if sf != SF_TIMED:
-        log(f"lineage at SF {sf}: SF {SF_TIMED} would write "
-            f"{snapshot_bytes / 1e9:.1f} GB of snapshots")
-    work = tempfile.mkdtemp(prefix="lineage_", dir=ROOT / "build")
-
-    def populate(q, store, n_devices):
-        inj = ChaosInjector(FaultPlan(q, (
-            FaultSpec("transient", cut="finalize"),)))
-        try:
-            run_resumable(QUERIES[q], ldb, store, chaos=inj,
-                          n_devices=n_devices, device=dev)
-        except TransientFault:
-            return
-        raise AssertionError(f"q{q}: the finalize fault did not fire")
-
-    def timed(fn) -> float:
-        fn()                                        # warm-up
-        runs = []
-        for _ in range(REPS):
-            t = time.perf_counter()
-            fn()
-            runs.append(time.perf_counter() - t)
-        return statistics.median(runs)
-
-    try:
-        for q in RECOVERY_QUERIES:
-            label = f"SF {sf} q{q} lineage"
-            store = TimedStore(f"{work}/q{q}")
-            t0 = time.perf_counter()
-            populate(q, store, 1)
-            fail_s = time.perf_counter() - t0
-            saved, nbytes = store.saved, dir_bytes(store.dir)
-            if saved < 1:
-                raise AssertionError(f"{label}: no snapshot written")
-            full, _ = B.run_local(QUERIES[q], ldb, device=dev)
-            full_s = timed(lambda: B.run_local(QUERIES[q], ldb, device=dev))
-
-            def resume(st, width):
-                got, _, overflow, reused = run_resumable(
-                    QUERIES[q], ldb, st, n_devices=width, device=dev)
-                if overflow or reused < 1 or not same_bytes(got, full):
-                    raise AssertionError(f"{label}: resume at width "
-                                         f"{width} reused {reused}, "
-                                         f"overflow {overflow}, or differs")
-            resume_s = timed(lambda: resume(store, 1))
-            if store.resharded:
-                raise AssertionError(f"{label}: a same-width resume "
-                                     f"re-sharded")
-            wide = TimedStore(f"{work}/q{q}_w8")
-            populate(q, wide, 8)
-            reshard_s = timed(lambda: resume(wide, 5))
-            if wide.resharded < 1:
-                raise AssertionError(f"{label}: the width 8 -> 5 resume did "
-                                     f"not re-shard")
-            log(f"{label}: {saved} snapshots, {nbytes / 1e9:.3f} GB, written "
-                f"in {store.write_s:.2f} s (the failed attempt took "
-                f"{fail_s:.2f} s); full_s {full_s:.4f}, resume_s "
-                f"{resume_s:.4f}, ratio {resume_s / full_s:.3f}; written at "
-                f"width 8 and resumed at 5: {reshard_s:.4f} s, ratio "
-                f"{reshard_s / full_s:.3f}, re-sharded {wide.resharded}; "
-                f"each resume byte-identical to run_local; medians of "
-                f"{REPS} after a warm-up ({card})")
-            shutil.rmtree(f"{work}/q{q}")
-            shutil.rmtree(f"{work}/q{q}_w8")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
     counts = dict(K.launches)
     log(f"launches on the recovery path (SF {SF_TIMED}, Q5/Q9/Q18): "
         f"{json.dumps(counts)}")
@@ -1028,18 +964,12 @@ def run_recovery(dev, db, results, snapshot_bytes, card) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 def serve_stream():
-    """The reference's ``bench_serve._stream()``: every sample of all 22
+    """The serving bench's stream (``repro_torch.bench.bench_serve``, the
+    reference's ``bench_serve._stream()``): every sample of all 22
     templates, round-robin, so consecutive requests come from different
     templates (29 requests)."""
-    from repro_torch import serve
-    per = [[(t, s) for s in t.samples]
-           for _, t in sorted(serve.TEMPLATES.items())]
-    out, i = [], 0
-    while any(per):
-        if per[i % len(per)]:
-            out.append(per[i % len(per)].pop(0))
-        i += 1
-    return out
+    from repro_torch.bench.bench_serve import stream
+    return stream()
 
 
 def supplier_revenue():
@@ -1213,126 +1143,64 @@ def run_batch(dev, db, label, seq=None) -> tuple[float, float, float]:
     return ms, seq_ms, extra
 
 
-def approx_sf10(dev, db, results, card) -> dict:
-    """7c.3: Q1 and Q6 off the sample ladder at SF 10, per rung, through
-    the rewrite on run_local, ``ProgressiveRunner`` and
-    ``QueryServer.submit(tolerance=)``; Q18 refused.  Returns the kernels
-    that ``ProgressiveRunner`` and ``submit(tolerance=)`` launched."""
+def approx_paths(dev, db, sf, whole: bool) -> dict:
+    """7c.3: what phase 10's ``bench_approx`` (each rung's wall, width and
+    coverage, rung 1 against the exact plan) does not drive: for Q1 and Q6
+    at ``sf``, ``ProgressiveRunner`` and ``QueryServer.submit(tolerance=)``
+    answering at one rung; where ``whole``, also ``ProgressiveRunner``
+    climbing the whole ladder at tolerance 0, each rung's width equal to
+    the rung run alone and its last answer byte-identical to the exact
+    plan, and the server's tolerance-0 answer equal to its exact one; then
+    Q18 served exact as a refused shape.  The rungs (and each ladder's
+    shared stratum rank) stay cached on ``db`` for phase 10; the caller
+    drops them.  Returns the kernels that ``ProgressiveRunner`` and
+    ``submit(tolerance=)`` launched."""
     import numpy as np
-    import torch
     from repro_torch.approx import ProgressiveRunner, sampling
     from repro_torch.approx.rewrite import rewrite_for_rung
     from repro_torch.core import backend as B
     from repro_torch.serve import TEMPLATES, QueryServer
-    li = db.tables["lineitem"]
-    rows = len(li["l_orderkey"])
-    row_bytes = sum(v.itemsize for v in li.values())
-    ladder_share = sum(1 / d for d in sampling.LADDER)
-    log(f"SF {SF_TIMED} approx: reckoned sample tables per query "
-        f"{ladder_share:.4f} x {rows} lineitem rows x ({row_bytes} + 24) "
-        f"bytes = {ladder_share * rows * (row_bytes + 24) / 1e9:.2f} GB on "
-        f"the host and the card (each ladder freed before the next)")
-    base = B.device_tables(db, dev)
     srv = QueryServer(db, device=dev)
     tally = {}
+    t0 = time.perf_counter()
     for q in APPROX_QUERIES:
         t = TEMPLATES[q]
-        exact = None
-        runs = []
-        for _ in range(REPS + 1):
-            s = time.perf_counter()
-            exact, _ = B.run_local(t.query, db, device=dev)
-            runs.append((time.perf_counter() - s) * 1e3)
-        exact_ms = statistics.median(runs[1:])
-        truth = results[q]
-        widths, walls = {}, {}
-        for den in sampling.LADDER:
-            label = f"SF {SF_TIMED} q{q} rung 1/{den}"
+        # the host's build of each rung's sample (every rung where whole,
+        # else the first), timed before anything else asks for it
+        builds, gb = {}, {}
+        for den in sampling.LADDER if whole else sampling.LADDER[:1]:
             s = time.perf_counter()
             rw = rewrite_for_rung(t.query, db, den)
-            build_s = time.perf_counter() - s
-            name = sampling.rung_name("lineitem", den)
-            gb = sum(v.nbytes for v in rw.db.tables[name].values()) / 1e9
-            s = time.perf_counter()
-            tables = B.device_tables(rw.db, dev)
-            torch.cuda.synchronize(dev)
-            upload_s = time.perf_counter() - s
-            if any(tables[k] is not base[k] for k in base):
-                raise AssertionError(f"{label}: a base table was uploaded "
-                                     f"again")
-            runs = []
-            for _ in range(REPS + 1):
-                s = time.perf_counter()
+            builds[f"1/{den}"] = round(time.perf_counter() - s, 2)
+            gb[f"1/{den}"] = round(sum(
+                v.nbytes for v in rw.db.tables[sampling.rung_name(
+                    "lineitem", den)].values()) / 1e9, 3)
+        log(f"SF {sf} q{q}: samples built on the host, s "
+            f"{json.dumps(builds)}, GB {json.dumps(gb)} (the rungs of a "
+            f"ladder share its stratum rank: the first pays for it)")
+        if whole:
+            exact, _ = B.run_local(t.query, db, device=dev)
+            widths = []
+            for den in sampling.LADDER:
+                rw = rewrite_for_rung(t.query, db, den)
                 out, _ = B.run_local(rw.query, rw.db, device=dev)
-                runs.append((time.perf_counter() - s) * 1e3)
-            walls[den] = statistics.median(runs[1:])
-            est = rw.finalize(out)
-            widths[den] = est.rel_width
-            if den == 1 and not same_bytes(out, exact):
-                raise AssertionError(f"{label}: differs from the exact plan")
-            # the interval [est - hw, est + hw] against phase 5's answer, up
-            # to the repo's float tolerance (a fully sampled count is n/m
-            # summed m times: exact up to rounding, at width 0).  A 95 %
-            # interval misses 1 in 20, and a group's aggregates share its
-            # sample, so misses come a group at a time: the share is
-            # printed, and a broken estimate (a lost weight, a wrong
-            # stratum) is caught by holding every cell within 4 widths
-            covered = total = 0
-            for name_t, _ in rw.targets:
-                hw = est.half_width[name_t]
-                for i in range(len(est.result[name_t])):
-                    j = i if q == 6 else int(np.flatnonzero(
-                        (truth["l_returnflag"] ==
-                         est.result["l_returnflag"][i]) &
-                        (truth["l_linestatus"] ==
-                         est.result["l_linestatus"][i]))[0])
-                    want = float(truth[name_t][j])
-                    err = abs(float(est.result[name_t][i]) - want)
-                    width = float(hw[i]) if den > 1 else 0.0
-                    slack = 1e-7 * abs(want)
-                    total += 1
-                    covered += bool(err <= width + slack)
-                    if err > 4 * width + slack:
-                        raise AssertionError(
-                            f"{label} {name_t}[{i}]: estimate off by {err} "
-                            f"against a half-width of {width}")
-            log(f"{label}: sample built on the host in {build_s:.2f} s, "
-                f"{gb:.3f} GB, uploaded in {upload_s:.2f} s beside the "
-                f"resident base tables; warm wall median of {REPS} "
-                f"{walls[den]:.2f} ms (exact plan {exact_ms:.2f} ms); max "
-                f"relative CI half-width {widths[den]:.3e}; the interval "
-                f"covers phase 5's exact answer in {covered} of {total} "
-                f"(group, aggregate) cells, every cell within 4 "
-                f"half-widths ({card})")
-        dens = list(sampling.LADDER)
-        if any(widths[a] < widths[b] for a, b in zip(dens, dens[1:])) or \
-                widths[1] != 0.0:
-            raise AssertionError(f"q{q}: the CI width grew as the sample "
-                                 f"grew: {widths}")
-        # where a rung's time goes against the exact plan's: the device
-        # time by kernel of the 1/2 rung and of the exact plan
-        half = rewrite_for_rung(t.query, db, 2)
-        for what, fn in (("rung 1/2", lambda: B.run_local(
-                half.query, half.db, device=dev)),
-                         ("exact", lambda: B.run_local(t.query, db,
-                                                       device=dev))):
-            by = device_time_by_kernel(fn)
-            top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
-            log(f"SF {SF_TIMED} q{q} {what}: device busy "
-                f"{sum(by.values()):.2f} ms in {len(by)} kernels; top "
-                f"{json.dumps({k[:70]: round(v, 2) for k, v in top})}")
-        log(f"SF {SF_TIMED} q{q}: the 1/16 rung ({walls[16]:.2f} ms) is "
-            f"{'faster' if walls[16] < exact_ms else 'not faster'} than the "
-            f"exact plan ({exact_ms:.2f} ms); rung 1 byte-identical to it")
-        ans = counted(tally, lambda: ProgressiveRunner(
-            db, tolerance=0.0, device=dev).run(t.query))
-        got_w = [a.ci_width for a in ans.report.attempts]
-        if [a.rung for a in ans.report.attempts] != dens or \
-                not np.allclose(got_w, [widths[d] for d in dens],
-                                rtol=1e-7, atol=0.0) or \
-                not same_bytes(ans.result, exact):
-            raise AssertionError(f"q{q}: ProgressiveRunner's climb differs "
-                                 f"from the rungs run alone")
+                widths.append(rw.finalize(out).rel_width)
+            ans = counted(tally, lambda: ProgressiveRunner(
+                db, tolerance=0.0, device=dev).run(t.query))
+            got_w = [a.ci_width for a in ans.report.attempts]
+            if [a.rung for a in ans.report.attempts] != \
+                    list(sampling.LADDER) or \
+                    not np.allclose(got_w, widths, rtol=1e-7, atol=0.0) or \
+                    not same_bytes(ans.result, exact):
+                raise AssertionError(f"q{q}: ProgressiveRunner's climb "
+                                     f"differs from the rungs run alone")
+            if not same_bytes(srv.submit(q, tolerance=0.0), srv.submit(q)):
+                raise AssertionError(f"q{q}: the server's rung 1 differs "
+                                     f"from its exact answer")
+            log(f"SF {sf} q{q}: ProgressiveRunner climbs 1/16 .. 1/1 with "
+                f"the widths of the rungs run alone and ends "
+                f"byte-identical to the exact plan; the server's "
+                f"tolerance-0 answer byte-identical to its exact one")
         ans = counted(tally, lambda: ProgressiveRunner(
             db, tolerance=APPROX_TOLERANCE, device=dev).run(t.query))
         esc = srv.approx_escalations
@@ -1342,33 +1210,22 @@ def approx_sf10(dev, db, results, card) -> dict:
             raise AssertionError(f"q{q}: the server answered at rung "
                                  f"1/{sampling.LADDER[climbed]}, the runner "
                                  f"at 1/{ans.rung}")
-        if not same_bytes(srv.submit(q, tolerance=0.0), srv.submit(q)):
-            raise AssertionError(f"q{q}: the server's rung 1 differs from "
-                                 f"its exact answer")
-        log(f"SF {SF_TIMED} q{q}: ProgressiveRunner climbs 1/16 .. 1/1 with "
-            f"the same widths and ends byte-identical to the exact plan; at "
-            f"tolerance {APPROX_TOLERANCE} it and QueryServer.submit answer "
-            f"at rung 1/{ans.rung} (width {ans.ci_width:.3e}); the server's "
-            f"tolerance-0 answer byte-identical to its exact one")
-        srv.cache.clear()
-        sampling.invalidate(db)
-        del rw, half, tables, ans
-        gc.collect()
-        torch.cuda.empty_cache()
-    for den in sampling.LADDER[:-1]:
-        if rewrite_for_rung(TEMPLATES[18].query, db, den) is not None:
-            raise AssertionError(f"q18 rewrote onto rung 1/{den}")
+        log(f"SF {sf} q{q}: at tolerance {APPROX_TOLERANCE} "
+            f"ProgressiveRunner and QueryServer.submit answer at rung "
+            f"1/{ans.rung} (width {ans.ci_width:.3e})")
     refused = srv.approx_refused
     if not same_bytes(srv.submit(18, tolerance=APPROX_TOLERANCE),
                       srv.submit(18)) or srv.approx_refused != refused + 1:
         raise AssertionError("q18: not served exact as a refused shape")
-    log(f"SF {SF_TIMED} q18: every sampled rung refused (its grouped sum "
-        f"feeds a HAVING filter), served exact, approx_refused counted")
+    log(f"SF {sf} q18: served exact at tolerance {APPROX_TOLERANCE} (every "
+        f"sampled rung refused: its grouped sum feeds a HAVING filter), "
+        f"approx_refused counted; the approximate paths took "
+        f"{time.perf_counter() - t0:.1f} s, rung builds included")
     return tally
 
 
 def progressive_on_group(dev, db) -> dict:
-    """7c.4: each rung of Q1, Q6 and the shuffled supplier revenue on a
+    """7c.5: each rung of Q1, Q6 and the shuffled supplier revenue on a
     ThreadGroup of 4 at SF 1, against the same rung on one device.
     Returns the kernels that the runs on the group launched."""
     from repro_torch.approx import ProgressiveRunner, sampling
@@ -1414,8 +1271,31 @@ def progressive_on_group(dev, db) -> dict:
     return tally
 
 
+def rung_breakdown(dev, db, sf) -> None:
+    """7c.4: where a rung's time goes against the exact plan's: the device
+    time by kernel of one run of Q1's and Q6's 1/16 rung (the sample
+    ``approx_paths`` built) and of their exact plans, the six largest."""
+    from repro_torch.approx.rewrite import rewrite_for_rung
+    from repro_torch.core import backend as B
+    from repro_torch.serve import TEMPLATES
+    for q in APPROX_QUERIES:
+        t = TEMPLATES[q]
+        rung = rewrite_for_rung(t.query, db, 16)
+        for what, fn in (("rung 1/16", lambda: B.run_local(
+                rung.query, rung.db, device=dev)),
+                         ("exact", lambda: B.run_local(t.query, db,
+                                                       device=dev))):
+            by = device_time_by_kernel(fn)
+            busy = sum(by.values())
+            top = {k[:70]: f"{v:.2f} ({v / busy:.2f})" for k, v in
+                   sorted(by.items(), key=lambda kv: -kv[1])[:6]}
+            log(f"SF {sf} q{q} {what}: device busy {busy:.2f} ms in "
+                f"{len(by)} kernels; the largest, ms (share) "
+                f"{json.dumps(top)}")
+
+
 def hash_stream(dev, db) -> dict:
-    """7c.5: one pass of the stream under hash joins at SF 1 against the
+    """7c.6: one pass of the stream under hash joins at SF 1 against the
     sorted server's.  Returns the kernels the hash server launched."""
     from repro_torch.serve import QueryServer
     reqs = serve_stream()
@@ -1432,9 +1312,11 @@ def hash_stream(dev, db) -> dict:
 
 def run_serving(dev, db10, db1, results, card) -> dict[str, int]:
     """Phase 7c: serving and approximate answers (``repro_torch.serve``,
-    ``repro_torch.approx``) on the SF 10 tables, uploaded once; SF 1 for
-    the batch's reckoning, the ThreadGroup and the hash joins.  Returns the
-    launch counts of the phase."""
+    ``repro_torch.approx``) on the SF 10 tables, uploaded once, with the
+    1/16 rungs of Q1 and Q6 there (they and their ladders' stratum ranks
+    stay for phase 10); SF 1 for the batch's reckoning, the whole ladder,
+    the ThreadGroup and the hash joins.  Returns the launch counts of the
+    phase."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.core import backend as B
@@ -1471,9 +1353,13 @@ def run_serving(dev, db10, db1, results, card) -> dict[str, int]:
         f"{BATCH_MAX_BYTES / 1e9:.0f}), so it ran at SF {sf}: {ms:.1f} ms "
         f"against {seq_total:.1f} ms for the requests run alone, memo peak "
         f"{extra / 1e9:.2f} GB above the resident tables ({card})")
-    approximate = approx_sf10(dev, db10, results, card)
+    approximate = approx_paths(dev, db10, SF_TIMED, whole=False)
     require_launches(approximate, ("segsum_sum", "segsum_count"),
                      "the approximate path")
+    rung_breakdown(dev, db10, SF_TIMED)
+    ladder = approx_paths(dev, db1, SF_MAIN, whole=True)
+    require_launches(ladder, ("segsum_sum", "segsum_count"),
+                     f"the approximate path at SF {SF_MAIN}")
     ranked = progressive_on_group(dev, db1)
     require_launches(ranked, ("counting_rank",), "the progressive "
                      "ThreadGroup path")
@@ -1482,7 +1368,8 @@ def run_serving(dev, db10, db1, results, card) -> dict[str, int]:
     counts = dict(K.launches)
     log(f"launches on phase 7c: {json.dumps(counts)}; ProgressiveRunner "
         f"and submit(tolerance=) at SF {SF_TIMED} alone "
-        f"{json.dumps(approximate)}; the ThreadGroup runs alone "
+        f"{json.dumps(approximate)}, at SF {SF_MAIN} alone "
+        f"{json.dumps(ladder)}; the ThreadGroup runs alone "
         f"{json.dumps(ranked)}; the hash server alone {json.dumps(hashed)}")
     peak = torch.cuda.max_memory_allocated(dev)
     foot = QueryServer(db10, device=dev).footprint_bytes()
@@ -1491,8 +1378,48 @@ def run_serving(dev, db10, db1, results, card) -> dict[str, int]:
         f"{resident / 1e9:.2f} GB resident and {serve_peak / 1e9:.2f} GB "
         f"peak over the serving passes ({peak / 1e9:.2f} GB over the whole "
         f"phase, the sample ladders included) ({card})")
-    planner.invalidate_stats(db1)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the paper's benchmarks (repro_torch.bench)
+# ---------------------------------------------------------------------------
+
+def run_benches(dev, db1, db10, card) -> None:
+    """Phase 10: every bench of ``repro_torch.bench.run``, in this process
+    on ``dev``, at ``BENCH_ARGS``' sizes: first those of ``BENCH_SF10`` on
+    ``db10`` (its 1/16 rungs and their ranks built by phase 7c), then, with
+    SF 10 off the card, the rest in ``run``'s order (SF 1 on ``db1``); the
+    gated benches with ``--check`` (any failed gate raises) but those of
+    ``BENCH_UNGATED``.  Reports go to ``results/torch``."""
+    import torch
+    from repro_torch.bench import run as bench
+    from repro_torch.bench.common import RESULTS, Datasets
+    from repro_torch.core import planner
+    data = Datasets()
+    data.add(db1, SF_MAIN, SEED)
+    data.add(db10, SF_TIMED, SEED)
+    t0 = time.perf_counter()
+    # the SF 10 benches first, on the resident tables and rungs; then SF
+    # 10 leaves the card: 8 ranks of the Q12 plans at SF 1 on one card
+    # need most of its memory
+    first = [n for n in bench.ORDER if n in BENCH_SF10]
+    secs = bench.run(first, str(dev), BENCH_ARGS, out_dir=RESULTS,
+                     check=True, data=data)
+    planner.invalidate_stats(db10)
+    planner.invalidate_stats(db1)       # phase 7c's shards and rungs
+    gc.collect()
+    torch.cuda.empty_cache()
+    rest = [n for n in bench.ORDER if n not in first]
+    secs.update(bench.run([n for n in rest if n not in BENCH_UNGATED],
+                          str(dev), BENCH_ARGS, out_dir=RESULTS, check=True,
+                          data=data))
+    secs.update(bench.run([n for n in rest if n in BENCH_UNGATED],
+                          str(dev), BENCH_ARGS, out_dir=RESULTS, data=data))
+    log(f"phase 10: {len(bench.ORDER)} benches passed in "
+        f"{time.perf_counter() - t0:.1f} s (every gate asked but "
+        f"{', '.join(BENCH_UNGATED)}'s), seconds each "
+        f"{json.dumps({k: round(v, 1) for k, v in secs.items()})} ({card})")
 
 
 # ---------------------------------------------------------------------------
@@ -1908,19 +1835,20 @@ def main() -> int:
     counts, db1, refs, sql = run_main_path(dev)
     results = run_timed(dev, db10, sql)
     dist_counts = run_distributed_path(dev, db1, refs)
-    snapshot_bytes = reckon_snapshot_bytes(dev, db1)
     from repro_torch.core import planner
-    planner.invalidate_stats(db1)       # phase 7c uploads it again
+    planner.invalidate_stats(db1)       # phases 7b and 7c upload it again
     run_distributed_timed(dev, db10, results)
-    run_recovery(dev, db10, results, snapshot_bytes, card)
+    run_recovery(dev, db10, db1, results, refs)
     run_serving(dev, db10, db1, results, card)
-    del db1
 
-    # phases 8 and 9 run with the SF 10 tables freed
+    # phase 10 on SF 10, still resident from phase 7c, then on SF 1;
+    # phases 8 and 9 with both freed
+    run_benches(dev, db1, db10, card)
     probe_np = db10.tables["lineitem"]["l_orderkey"]
     build_np = db10.tables["orders"]["o_orderkey"]
     planner.invalidate_stats(db10)
-    del db10, results
+    planner.invalidate_stats(db1)       # their rungs and shards go too
+    del db10, results, db1, refs
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

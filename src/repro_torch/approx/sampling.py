@@ -25,6 +25,10 @@ Rung databases are cached per source ``Database`` and evicted through the
 planner invalidation registry, exactly like ``serve.cache.PlanCache``:
 ``planner.invalidate_stats(db)`` (or a ``stats_override`` exit) drops every
 rung derived from ``db``, and with it the rung's device tables and shards.
+The rungs of one ladder (a table, its strata and a seed) share the strata
+numbering and the hash rank (:func:`stratum_ranks`), cached beside them and
+dropped with them, so only a ladder's first sampled rung pays for the
+lexsort; rung 1 keeps every row and needs no rank.
 
 On the card a rung database holds the base's resident tensors (the same
 objects) beside its one sample table
@@ -50,6 +54,7 @@ __all__ = [
     "LADDER",
     "DEFAULT_SEED",
     "rung_name",
+    "stratum_ranks",
     "stratified_selection",
     "sample_table",
     "rung_database",
@@ -102,21 +107,15 @@ def _stratum_ids(strata, n_rows: int) -> np.ndarray:
     return sid
 
 
-def stratified_selection(strata, n_rows, den, seed=DEFAULT_SEED):
-    """Pick rows for one rung.
-
-    ``strata`` is a sequence of integer numpy columns (possibly empty for a
-    single global stratum).  Returns ``(mask, sid, n_g, m_g)`` where ``mask``
-    is the boolean keep-mask over the ``n_rows`` input rows, ``sid`` maps each
-    row to its stratum id, and ``n_g`` / ``m_g`` are per-stratum population
-    and sample sizes indexed by stratum id.
-    """
-    den = int(den)
-    if den < 1:
-        raise ValueError(f"ladder denominator must be >= 1, got {den}")
+def stratum_ranks(strata, n_rows, seed=DEFAULT_SEED, rank=True):
+    """What a rung's selection needs that does not depend on its ``den``:
+    ``(sid, n_g, rank)``, each row's stratum id, the strata's sizes, and
+    each row's hash rank within its stratum (None unless ``rank``; only a
+    sampled rung, ``den > 1``, reads it)."""
     sid = _stratum_ids(strata, n_rows)
     n_g = np.bincount(sid)
-    m_g = np.maximum(1, -(-n_g // den))  # ceil(n_g / den), floor 1
+    if not rank:
+        return sid, n_g, None
     # Per-row hash is a pure function of (seed, global row index): the same
     # row ranks identically at every den, which is what nests the rungs.
     mixed_seed = np.uint64((int(seed) * 0x2545F4914F6CDD1D) % (1 << 64))
@@ -127,20 +126,45 @@ def stratified_selection(strata, n_rows, den, seed=DEFAULT_SEED):
     key = sid.astype(np.min_scalar_type(max(n_g.size - 1, 0)))
     order = np.lexsort((h, key))
     starts = np.concatenate(([0], np.cumsum(n_g)))
-    rank = np.empty(n_rows, dtype=np.int64)
-    rank[order] = np.arange(n_rows, dtype=np.int64) - \
+    ranks = np.empty(n_rows, dtype=np.int64)
+    ranks[order] = np.arange(n_rows, dtype=np.int64) - \
         np.repeat(starts[:-1], n_g)
-    mask = rank < m_g[sid]
+    return sid, n_g, ranks
+
+
+def stratified_selection(strata, n_rows, den, seed=DEFAULT_SEED,
+                         ranked=None):
+    """Pick rows for one rung.
+
+    ``strata`` is a sequence of integer numpy columns (possibly empty for a
+    single global stratum).  Returns ``(mask, sid, n_g, m_g)`` where ``mask``
+    is the boolean keep-mask over the ``n_rows`` input rows, ``sid`` maps each
+    row to its stratum id, and ``n_g`` / ``m_g`` are per-stratum population
+    and sample sizes indexed by stratum id.  ``ranked``, where given, is
+    :func:`stratum_ranks` of the same strata, rows and seed (with its rank
+    where ``den > 1``), which the rungs of one ladder share.
+    """
+    den = int(den)
+    if den < 1:
+        raise ValueError(f"ladder denominator must be >= 1, got {den}")
+    if ranked is None:
+        ranked = stratum_ranks(strata, n_rows, seed, rank=den > 1)
+    sid, n_g, rank = ranked
+    m_g = np.maximum(1, -(-n_g // den))  # ceil(n_g / den), floor 1
+    # at den 1, m_g = n_g and every rank is below it: every row is kept
+    mask = np.ones(n_rows, dtype=bool) if den == 1 else rank < m_g[sid]
     return mask, sid, n_g, m_g
 
 
-def sample_table(table_cols, strata_names, den, seed=DEFAULT_SEED):
+def sample_table(table_cols, strata_names, den, seed=DEFAULT_SEED,
+                 ranked=None):
     """Materialize one rung of a plain-numpy table dict.
 
-    Keeps the original row order (boolean-mask selection) and appends the
+    Keeps the original row order (the kept rows, in order) and appends the
     ``__sw`` / ``__sm`` / ``__sn`` bookkeeping columns.  ``strata_names``
     must name integer columns of the table; an empty tuple means one global
-    stratum (the scalar-aggregate case).
+    stratum (the scalar-aggregate case).  ``ranked`` as for
+    :func:`stratified_selection`.
     """
     cols = {c: np.asarray(v) for c, v in table_cols.items()}
     n_rows = len(next(iter(cols.values()))) if cols else 0
@@ -150,9 +174,12 @@ def sample_table(table_cols, strata_names, den, seed=DEFAULT_SEED):
         if cols[s].dtype.kind not in "iu":
             raise TypeError(f"stratum column {s!r} must be integer-typed")
     mask, sid, n_g, m_g = stratified_selection(
-        [cols[s] for s in strata_names], n_rows, den, seed)
-    out = {c: v[mask] for c, v in cols.items()}
-    ssel = sid[mask]
+        [cols[s] for s in strata_names], n_rows, den, seed, ranked)
+    # the kept rows' indices once, not a mask scan per column; a rung that
+    # keeps every row (rung 1) holds the table's own arrays
+    rows = None if mask.all() else np.flatnonzero(mask)
+    out = {c: v if rows is None else v[rows] for c, v in cols.items()}
+    ssel = sid if rows is None else sid[rows]
     out[SAMPLE_WEIGHT_COL] = (n_g[ssel] / m_g[ssel]).astype(np.float64)
     out[SAMPLE_M_COL] = m_g[ssel].astype(np.int64)
     out[SAMPLE_N_COL] = n_g[ssel].astype(np.int64)
@@ -165,6 +192,10 @@ def sample_table(table_cols, strata_names, den, seed=DEFAULT_SEED):
 # guard against id reuse, dropped by planner.invalidate_stats).
 
 _RUNGS: dict = {}  # (id(db), table, strata, den, seed) -> (weakref(db), rung_db)
+# (id(db), table, strata, seed) -> (weakref(db), stratum_ranks(...)): the
+# rungs of one ladder share the strata and the hash rank, the costly part
+# of a build (the numbering and the lexsort over the whole table)
+_RANKS: dict = {}
 
 
 def _drop_rung_partition_keys(dead_keys) -> None:
@@ -184,6 +215,9 @@ def _drop_rung_partition_keys(dead_keys) -> None:
 
 
 def _invalidation_hook(db) -> None:
+    for k in [k for k, (ref, _) in _RANKS.items()
+              if k[0] == id(db) or ref() is None]:
+        del _RANKS[k]
     dead = [k for k, (ref, _) in _RUNGS.items()
             if k[0] == id(db) or ref() is None]
     rdbs = [_RUNGS.pop(k)[1] for k in dead]
@@ -200,6 +234,7 @@ planner.register_invalidation(_invalidation_hook)
 def invalidate(db=None) -> None:
     """Drop cached rungs for ``db`` (or all rungs when ``db`` is None)."""
     if db is None:
+        _RANKS.clear()
         dead = list(_RUNGS)
         rdbs = [rdb for _, rdb in _RUNGS.values()]
         _RUNGS.clear()
@@ -231,7 +266,16 @@ def rung_database(db: Database, table: str, strata, den: int,
     from repro_torch.core import backend as B
 
     name = rung_name(table, den)
-    samp = sample_table(db.tables[table], strata, den, seed)
+    rkey = key[:3] + key[4:]
+    got = _RANKS.get(rkey)
+    ranked = got[1] if got is not None and got[0]() is db else None
+    if ranked is None or (den > 1 and ranked[2] is None):
+        cols = db.tables[table]
+        ranked = stratum_ranks([np.asarray(cols[c]) for c in strata],
+                               len(next(iter(cols.values()))), seed,
+                               rank=den > 1)
+        _RANKS[rkey] = (weakref.ref(db), ranked)
+    samp = sample_table(db.tables[table], strata, den, seed, ranked)
     rdb = B.derive_database(db, {name: samp})
     # only partitioned base tables register: an explicit name -> None entry
     # would make dryrun analytics classify the rung as replicated

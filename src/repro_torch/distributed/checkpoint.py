@@ -12,6 +12,7 @@ checkpoint.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
@@ -62,13 +63,14 @@ def _step_dir(directory: str, step: int) -> str:
 
 
 def _read_leaf(path: str, meta: dict, strict_checksum: bool) -> np.ndarray:
+    """A leaf's array from one read of its file: the checksum covers the
+    very bytes that are parsed."""
     fp = os.path.join(path, meta["file"])
-    if strict_checksum:
-        with open(fp, "rb") as f:
-            crc = zlib.crc32(f.read())
-        if crc != meta["crc32"]:
-            raise IOError(f"checksum mismatch in {fp}")
-    return np.load(fp)
+    with open(fp, "rb") as f:
+        data = f.read()
+    if strict_checksum and zlib.crc32(data) != meta["crc32"]:
+        raise IOError(f"checksum mismatch in {fp}")
+    return np.load(io.BytesIO(data)).copy()     # writable, owns its memory
 
 
 def save(directory: str, step: int, tree: Any, metadata: dict | None = None):
@@ -85,11 +87,14 @@ def save(directory: str, step: int, tree: Any, metadata: dict | None = None):
     for i, (_, leaf) in enumerate(flat):
         arr = _host(leaf)
         fn = f"{i:06d}.npy"
-        np.save(os.path.join(tmp, fn), arr)
-        with open(os.path.join(tmp, fn), "rb") as f:
-            crc = zlib.crc32(f.read())
+        buf = io.BytesIO()
+        np.save(buf, arr)                  # the bytes np.save writes a file
+        data = buf.getvalue()
+        with open(os.path.join(tmp, fn), "wb") as f:
+            f.write(data)
         manifest["leaves"].append({"file": fn, "shape": list(arr.shape),
-                                   "dtype": str(arr.dtype), "crc32": crc})
+                                   "dtype": str(arr.dtype),
+                                   "crc32": zlib.crc32(data)})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):

@@ -153,6 +153,33 @@ def test_rung_database_cached_and_invalidated():
     sampling.invalidate(db2)
 
 
+@pytest.mark.parametrize("order", [(16, 8, 4, 2, 1), (1, 2, 16, 4, 8)])
+def test_ladder_shares_its_rank_and_equals_the_reference(order):
+    """A ladder's rungs share the strata numbering and the hash rank
+    (rung 1 needs no rank); built in any order, each rung's sample is the
+    reference's ``sample_table`` byte for byte, and the rank goes with
+    the rungs."""
+    rng = np.random.default_rng(APPROX_SEED + 5)
+    cols = {"g": rng.integers(0, 7, 3000).astype(np.int64),
+            "h": rng.integers(0, 3, 3000).astype(np.int32),
+            "v": rng.normal(size=3000)}
+    db2 = Database(tables={"facts": cols}, dicts={}, scale=1.0)
+    try:
+        for den in order:
+            got = sampling.rung_database(db2, "facts", ("g", "h"), den)
+            want = rsampling.sample_table(cols, ("g", "h"), den)
+            samp = got.tables[sampling.rung_name("facts", den)]
+            assert set(samp) == set(want)
+            for c in want:
+                assert samp[c].dtype == want[c].dtype
+                assert samp[c].tobytes() == want[c].tobytes(), (den, c)
+        assert any(k[0] == id(db2) for k in sampling._RANKS)
+        planner.invalidate_stats(db2)
+        assert not any(k[0] == id(db2) for k in sampling._RANKS)
+    finally:
+        sampling.invalidate(db2)
+
+
 def test_rung_partition_key_hygiene():
     rng = np.random.default_rng(APPROX_SEED + 4)
     db2 = Database(tables={"facts": {

@@ -1,0 +1,302 @@
+"""The port's benches (``repro_torch.bench``) on the CPU against the
+reference's: the same inputs, made from a seed, through both packages.
+
+Exchange bytes, projection lines, plan exchange counts, the skew bench's
+partition imbalance and the sample ladder's CI widths must equal the
+reference's; the gated benches pass their gates; a bench asked for CUDA
+where there is none raises; the reference's ``BENCH_*.json`` at the root
+are never written.  Sizes are small (sf 0.005 - 0.05) so the file runs in
+well under a minute.
+"""
+import hashlib
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))          # the reference's benchmarks/
+
+from benchmarks import bench_projection as ref_projection  # noqa: E402
+from benchmarks import bench_q12_plans as ref_q12  # noqa: E402
+from benchmarks import bench_skew as ref_skew  # noqa: E402
+from repro.approx.rewrite import rewrite_for_rung as ref_rewrite  # noqa: E402
+from repro.core import backend as RB  # noqa: E402
+from repro.data import jcch as ref_jcch  # noqa: E402
+from repro.data import tpch as ref_tpch  # noqa: E402
+from repro.queries import QUERIES as REF_QUERIES  # noqa: E402
+
+from repro_torch.bench import (  # noqa: E402
+    bench_approx, bench_exchange_bytes, bench_projection, bench_q12_plans,
+    bench_recovery, bench_serve, bench_skew, bench_sort_tax, bench_tpch, run)
+from repro_torch.bench.common import Datasets  # noqa: E402
+
+CPU = ["--device", "cpu"]
+
+
+def _hashes() -> dict:
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(ROOT.glob("BENCH_*.json"))}
+
+
+@pytest.fixture(scope="module")
+def data():
+    return Datasets()
+
+
+@pytest.fixture(scope="module")
+def gated(tmp_path_factory, data):
+    """The gated benches with ``--check`` at small sizes, their reports
+    under a temporary directory, and the root's BENCH_*.json hashed before
+    and after."""
+    out = tmp_path_factory.mktemp("bench")
+    before = _hashes()
+    reports = {
+        "bench_exchange_bytes": bench_exchange_bytes.main(
+            CPU + ["--check", "--out", str(out / "eb.json")], data),
+        "bench_sort_tax": bench_sort_tax.main(
+            CPU + ["--check", "--out", str(out / "st.json")], data),
+        "bench_recovery": bench_recovery.main(
+            CPU + ["--check", "--out", str(out / "rec.json")], data),
+        "bench_serve": bench_serve.main(
+            CPU + ["--sf", "0.01", "--reps", "1", "--baseline", "--check",
+                   "--out", str(out / "serve.json")], data),
+        # its wall gates need a device's timing; on a shared CPU at this
+        # size they are noise, so it runs without --check here
+        "bench_approx": bench_approx.main(
+            CPU + ["--sf", "0.01", "--reps", "1",
+                   "--out", str(out / "approx.json")], data),
+    }
+    return reports, before, _hashes(), out
+
+
+# -- exchange bytes ---------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ref_db_wire():
+    return ref_tpch.generate(0.01, seed=7)
+
+
+@pytest.mark.parametrize("qid", range(1, 23))
+def test_exchange_bytes_equal_the_reference(gated, ref_db_wire, qid):
+    got = gated[0]["bench_exchange_bytes"]["queries"][f"q{qid}"]
+    narrow = REF_QUERIES[qid].static_wire(ref_db_wire, narrow=True)
+    wide = REF_QUERIES[qid].static_wire(ref_db_wire, narrow=False)
+    assert got["exchanges"] == [
+        {"kind": n["kind"], "narrow": n["row_wire_bytes"],
+         "wide": w["row_wire_bytes"], "logical": n["row_logical_bytes"]}
+        for n, w in zip(narrow, wide)]
+    assert got["wire_bytes_narrow"] == sum(e["row_wire_bytes"]
+                                           for e in narrow)
+    assert got["wire_bytes_wide"] == sum(e["row_wire_bytes"] for e in wide)
+    assert got["logical_bytes"] == sum(e["row_logical_bytes"]
+                                       for e in narrow)
+
+
+# -- the gates, and the reference's outputs left alone ------------------------
+
+@pytest.mark.parametrize("name", ["bench_exchange_bytes", "bench_sort_tax",
+                                  "bench_recovery", "bench_serve"])
+def test_gated_bench_passes_its_gate(gated, name):
+    report = gated[0][name]
+    assert report["pass"] is True
+    assert Path(gated[3]).joinpath(
+        {"bench_exchange_bytes": "eb", "bench_sort_tax": "st",
+         "bench_recovery": "rec", "bench_serve": "serve"}[name]
+        + ".json").is_file()
+
+
+@pytest.mark.parametrize("qid", [1, 6, 18])
+def test_approx_gates_that_do_not_time(gated, qid):
+    checks = gated[0]["bench_approx"]["checks"][f"q{qid}"]
+    for name in ("rung1_byte_identical", "refusal_is_total",
+                 "ci_monotone_nonincreasing", "top_rung_ci_zero"):
+        assert checks[name] is True, name
+    assert ("sampled_rungs_refuse" in checks) == (qid == 18)
+
+
+def test_serve_prepares_once_per_template(gated):
+    report = gated[0]["bench_serve"]
+    assert report["recompiles"] == report["templates"] == 22
+    assert report["shared_hits"] > 0
+    assert report["per_prepare_s"] is not None
+
+
+def test_sort_tax_counts_are_the_budgets_at_their_database(gated):
+    from repro_torch.core.sortcount import MAX_SORTS
+    report = gated[0]["bench_sort_tax"]
+    assert (report["sf"], report["seed"]) == (0.005, 11)
+    for qid in bench_sort_tax.BENCH_QUERIES:
+        assert report["queries"][f"q{qid}"]["sorts"] == MAX_SORTS[qid][0]
+
+
+def test_reference_bench_outputs_untouched(gated):
+    _, before, after, _ = gated
+    assert before and before == after
+
+
+# -- projection ---------------------------------------------------------------
+
+def test_projection_lines_equal_the_reference(capsys):
+    ref_projection.main()
+    want = capsys.readouterr().out.splitlines()
+    bench_projection.main(CPU)
+    got = capsys.readouterr().out.splitlines()
+    assert len(want) > 20
+    assert got == want
+
+
+# -- plan exchange counts ---------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ref_db_small():
+    return ref_tpch.generate(0.005, seed=11)
+
+
+@pytest.fixture(scope="module")
+def tpch_report(data):
+    return bench_tpch.main(CPU + ["--sf", "0.005"], data)
+
+
+@pytest.mark.parametrize("qid", range(1, 23))
+def test_tpch_counts_equal_the_reference(tpch_report, ref_db_small, qid):
+    _, stats = RB.run_reference(REF_QUERIES[qid], ref_db_small)
+    got = tpch_report["queries"][qid]
+    assert (got["shuffles"], got["broadcasts"]) == \
+        (stats.shuffles, stats.broadcasts)
+
+
+@pytest.fixture(scope="module")
+def q12_report(data):
+    return bench_q12_plans.main(CPU + ["--sf", "0.005"], data)
+
+
+@pytest.mark.parametrize("plan", ["default_copart", "pa_shuffle_both",
+                                  "pb_broadcast"])
+def test_q12_plans_equal_the_reference(q12_report, ref_db_small, data,
+                                       plan):
+    from repro_torch.core import backend as B
+    ref_fn = {"default_copart": REF_QUERIES[12], "pa_shuffle_both":
+              ref_q12.q12_pa, "pb_broadcast": ref_q12.q12_pb}[plan]
+    want, stats = RB.run_reference(ref_fn, ref_db_small)
+    got = q12_report["plans"][plan]
+    assert (got["shuffles"], got["broadcasts"]) == \
+        (stats.shuffles, stats.broadcasts)
+    fn, pk = {n: (f, k) for n, f, k in bench_q12_plans.PLANS}[plan]
+    out, _, ov = B.run_distributed(fn, data.tpch(0.005, 11), 8,
+                                   capacity_factor=4.0, partition_keys=pk,
+                                   device="cpu")
+    assert not ov and set(out) == set(want)
+    for k in want:
+        np.testing.assert_allclose(np.asarray(out[k], np.float64),
+                                   np.asarray(want[k], np.float64),
+                                   rtol=1e-7, err_msg=f"{plan} {k}")
+
+
+# -- skew ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["tpch", "jcch"])
+def test_skew_imbalance_equals_the_reference(data, kind):
+    sf, seed = 0.005, 11
+    if kind == "tpch":
+        db, ref_db = data.tpch(sf, seed), ref_tpch.generate(sf, seed=seed)
+    else:
+        db = data.jcch(sf, seed, bench_skew.JCCH_SKEW)
+        ref_db = ref_jcch.generate(sf, seed=seed, skew=bench_skew.JCCH_SKEW)
+    counts, cap = bench_skew.lineitem_imbalance(db)
+    parts, caps = RB.partition_database(
+        ref_db, bench_skew.N, partition_keys={"lineitem": "l_partkey"})
+    np.testing.assert_array_equal(counts, parts["lineitem"]["__count"])
+    assert cap == caps["lineitem"]
+
+
+@pytest.mark.parametrize("f", bench_skew.SKEW_FACTORS)
+def test_skew_gradient_equals_the_reference(f):
+    assert (bench_skew.N, bench_skew.BASE_ROWS) == (ref_skew.N,
+                                                    ref_skew.BASE_ROWS)
+    np.testing.assert_array_equal(bench_skew.skewed_counts(f),
+                                  ref_skew._skewed_counts(f))
+
+
+# -- sample ladder ------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ref_db_approx():
+    return ref_tpch.generate(0.01, seed=7)
+
+
+@pytest.mark.parametrize("qid", [1, 6])
+def test_approx_widths_equal_the_reference(gated, ref_db_approx, qid):
+    rungs = gated[0]["bench_approx"]["queries"][f"q{qid}"]["rungs"]
+    assert [r["den"] for r in rungs] == [16, 8, 4, 2, 1]
+    for r in rungs:
+        rw = ref_rewrite(REF_QUERIES[qid], ref_db_approx, r["den"])
+        cols, _ = RB.run_reference(rw.query, rw.db)
+        want = float(rw.finalize(cols).rel_width)
+        assert r["ci"] == pytest.approx(want, rel=1e-7, abs=0.0), r["den"]
+
+
+@pytest.mark.parametrize("qid", [1, 6])
+def test_approx_coverage_counts_the_reference_cells(gated, ref_db_approx,
+                                                    qid):
+    """Each sampled rung counts one cell a (group, aggregate) of the
+    reference's rung answer, and the exact answer lies in some of them."""
+    rungs = gated[0]["bench_approx"]["queries"][f"q{qid}"]["rungs"]
+    for r in rungs[:-1]:
+        rw = ref_rewrite(REF_QUERIES[qid], ref_db_approx, r["den"])
+        cols, _ = RB.run_reference(rw.query, rw.db)
+        est = rw.finalize(cols)
+        name = rw.targets[0][0]
+        assert r["cells"] == len(rw.targets) * len(est.result[name])
+        assert 0 < r["covered"] <= r["cells"], r["den"]
+    assert "cells" not in rungs[-1]
+
+
+def test_recovery_reports_its_snapshots(gated):
+    for qid in (5, 9, 18):
+        got = gated[0]["bench_recovery"]["queries"][f"q{qid}"]
+        assert got["snapshots"] >= 1 and got["snapshot_bytes"] > 0
+        assert got["snapshot_write_s"] > 0
+
+
+def test_approx_refuses_q18_like_the_reference(gated, ref_db_approx):
+    rungs = gated[0]["bench_approx"]["queries"]["q18"]["rungs"]
+    for r in rungs[:-1]:
+        assert r == {"den": r["den"], "refused": True}
+        assert ref_rewrite(REF_QUERIES[18], ref_db_approx, r["den"]) is None
+    assert rungs[-1]["ci"] == 0.0
+
+
+# -- no fallback onto the CPU -------------------------------------------------
+
+@pytest.mark.parametrize("name", run.ORDER)
+def test_bench_without_cuda_raises(monkeypatch, name, tmp_path):
+    import importlib
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"repro_torch.bench.{name}")
+    argv = ["--out", str(tmp_path / "x.json")] if name in run.GATED else []
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv, Datasets())
+    assert not list(tmp_path.iterdir())
+
+
+def test_run_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run.main(["bench_projection"])
+
+
+def test_run_refuses_an_unknown_bench():
+    with pytest.raises(SystemExit):
+        run.main(["--device", "cpu", "bench_roofline"])
+
+
+def test_run_drives_the_ir_only_benches(tmp_path, capsys):
+    secs = run.run(["bench_projection", "bench_exchange_bytes"], "cpu",
+                   out_dir=tmp_path, check=True)
+    assert set(secs) == {"bench_projection", "bench_exchange_bytes"}
+    assert (tmp_path / "bench_exchange_bytes.json").is_file()
+    out = capsys.readouterr().out
+    assert "project_h100_ib_v1," in out and "pass=True" in out

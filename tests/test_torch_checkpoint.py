@@ -135,6 +135,33 @@ def test_restore_flat_roundtrip(tmp_path):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(flat[k]))
 
 
+def test_leaf_files_are_what_np_save_writes(tmp_path, tree):
+    """A leaf's file holds the bytes ``np.save`` writes for it, and its
+    manifest CRC is theirs: the reference's layout, written in one pass."""
+    import json
+    import zlib
+    path = ckpt.save(str(tmp_path / "ck"), 0, tree)
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    for i, leaf in enumerate(_leaves(tree)):
+        want = tmp_path / f"want_{i}.npy"
+        np.save(want, ckpt._host(leaf))
+        got = os.path.join(path, manifest["leaves"][i]["file"])
+        with open(got, "rb") as f:
+            data = f.read()
+        assert data == want.read_bytes()
+        assert manifest["leaves"][i]["crc32"] == zlib.crc32(data)
+
+
+def test_restored_leaves_are_writable_and_own_their_memory(tmp_path):
+    flat = {"a": np.arange(6, dtype=np.int64)}
+    ckpt.save(str(tmp_path), 0, flat, metadata={"keys": ["a"]})
+    got, _ = ckpt.restore_flat(str(tmp_path), 0, device="cpu")
+    got["a"][0] = 41                                # no read-only buffer
+    again, _ = ckpt.restore_flat(str(tmp_path), 0, device="cpu")
+    assert int(got["a"][0]) == 41 and int(again["a"][0]) == 0
+
+
 def test_restore_flat_rejects_non_flat(tmp_path):
     ckpt.save(str(tmp_path), 0, {"a": np.arange(3)})    # no keys metadata
     with pytest.raises(ValueError, match="keys"):

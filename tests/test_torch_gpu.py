@@ -879,3 +879,24 @@ def test_serve_tolerance_on_card(cuda, serve_db):
     assert srv.approx_escalations == 4
     srv.submit(18, tolerance=0.5)
     assert srv.approx_refused == 1
+
+
+def test_bench_run_at_smallest_sizes(cuda, tmp_path):
+    """Every bench of ``repro_torch.bench.run`` on the card at its smallest
+    sizes.  At these sizes a query takes a few launches' time, so the
+    wall-clock gates (the ladder's walls, the recovery ratios) say nothing
+    and are not asked; the gates that count hold."""
+    import json
+    from repro_torch.bench import run as bench
+    secs = bench.run(bench.ORDER, str(cuda), bench.SMALLEST, out_dir=tmp_path)
+    assert list(secs) == list(bench.ORDER)
+    reports = {name: json.loads((tmp_path / f"{name}.json").read_text())
+               for name in bench.GATED}
+    for name in ("bench_exchange_bytes", "bench_sort_tax", "bench_serve"):
+        assert reports[name]["pass"] is True, name
+    for qid, checks in reports["bench_approx"]["checks"].items():
+        for name in ("rung1_byte_identical", "refusal_is_total",
+                     "ci_monotone_nonincreasing", "top_rung_ci_zero"):
+            assert checks[name] is True, (qid, name)
+    assert all(r["snapshots"] >= 1
+               for r in reports["bench_recovery"]["queries"].values())

@@ -91,3 +91,41 @@ def test_sources_import_no_jax_and_no_reference():
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from repro.core import table")
     assert not _FORBIDDEN.search("from repro_torch.core import table")
+
+
+_BENCHMARKS = re.compile(r"^\s*(import|from)\s+benchmarks(\.|\s|,|$)", re.M)
+
+
+def test_benches_import_no_reference_benchmarks():
+    files = sorted((ROOT / "src" / "repro_torch" / "bench").glob("*.py"))
+    # the 13 benches, common.py and run.py, beside __init__.py
+    assert len(files) == 16
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+           for f in files for pat in (_FORBIDDEN, _BENCHMARKS)
+           for m in pat.finditer(f.read_text())]
+    assert not bad, bad
+    assert _BENCHMARKS.search("from benchmarks import bench_tpch")
+    assert not _BENCHMARKS.search("from repro_torch.bench import run")
+
+
+def test_benches_run_with_jax_reference_and_benchmarks_blocked(tmp_path):
+    code = f"""
+import importlib
+import sys
+for name in ("jax", "jaxlib", "repro", "benchmarks"):
+    sys.modules[name] = None       # any import of them now raises
+from repro_torch.bench import run
+for name in run.ORDER:
+    importlib.import_module("repro_torch.bench." + name)
+secs = run.run(["bench_exchange_bytes"], "cpu", out_dir={str(tmp_path)!r},
+               check=True)
+assert list(secs) == ["bench_exchange_bytes"]
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "repro", "benchmarks")
+            and sys.modules[m] is not None]
+print("ok")
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    assert (tmp_path / "bench_exchange_bytes.json").is_file()
