@@ -30,8 +30,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      against the port's NumPy reference (row counts equal, rtol 1e-7), with
      the kernels' launch counters reset just before and read just after,
      and each query's sorts counted (``core/sortcount.SortCounter``),
-     printed per join method and held to the planner-off budget of
-     ``sortcount.MAX_SORTS``; then the 22 plans the SQL frontend compiles
+     printed per join method and equal to SF 1's planner-on budget
+     (``sortcount.budgets``); then the 22 plans the SQL frontend compiles
      from ``src/repro_torch/queries/sql`` (``repro_torch.sql``) under both
      join methods, each equal to the hand-built plan's result (integer
      columns byte for byte, floats within rtol 1e-7; how many are
@@ -100,11 +100,24 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      their stratum ranks phase 7c's; each lineage resume byte-identical to
      the full run), then, with SF 10 off the card, the rest in ``run``'s
      order at SF 1 and the reference's sizes, the gated ones with
-     ``--check`` (any failed gate or error fails the run) but
-     ``bench_sort_tax``, whose budgets are counts at sf 0.005 that Q3 and
-     Q13 exceed at SF 1 (reported, not gated here; the CPU tests hold the
-     gate): their CSV and report lines and each bench's seconds, reports
-     under ``results/torch``;
+     ``--check`` (any failed gate or error fails the run; the sort tax
+     against SF 1's own budgets): their CSV and report lines and each
+     bench's seconds, reports under ``results/torch``;
+ 11. (run after 10, SF 1 still in the host's memory) the SF 1000
+     analytics dry-run (``repro_torch.launch.dryrun_analytics``): all 22
+     queries at N = 256 and 512, each query's exchange counts and the
+     exchange time the paper's model prices on ``tpu_v5e`` and
+     ``h100_ib`` (the model's arithmetic, not a measurement), the host
+     seconds, and device memory unchanged across it (it allocates
+     nothing); then the examples (``examples/torch_*.py``) on the card,
+     with launch counters reset just before and read just after: the
+     quickstart, the plan and SQL quickstarts and the group-by paths at SF
+     1 on phase 4's database, each result equal to phase 4's reference
+     (the group-by paths sort 1 / 0 / 0), the distributed driver at SF 1
+     on a ThreadGroup of 8 (all 22 equal to phase 4's reference in one
+     attempt, with the plans' static exchange counts), and the LM serving
+     driver (reduced config); the grouped sums, counts, min/max, the group
+     dictionary and the counting rank must each launch;
   8. with the SF 10 tables freed: the 32-bit hash probe against its plain
      version, bit for bit, over SF 10's l_orderkey (60 M) probing
      o_orderkey (15 M) as int32 at caps 8, 16, 32 and 64, every design with
@@ -189,8 +202,8 @@ LM_F32_REL_L2 = 1e-4
 # baseline at SF 0.1, where its 3 x 22 reference runs take seconds on the
 # host, not minutes; the IR-only wire bytes and the exchange sweeps at the
 # reference's sizes; the kernels at SF 1's lineitem rows and the LM path's
-# attention shape; the sort tax at SF 1 without its gate (its budgets are
-# counts at sf 0.005); the recovery and sample-ladder benches at SF 10,
+# attention shape; the sort tax at SF 1 against SF 1's own budgets; the
+# recovery and sample-ladder benches at SF 10,
 # where a query's run is no longer bound by launches and host overhead (at
 # SF 1 a whole query takes 3-8 ms on the card, a snapshot's restore as
 # long, and a rung plan's ~500 operations more than its device time), with
@@ -210,7 +223,10 @@ BENCH_ARGS = {
     "bench_approx": ["--sf", str(SF_TIMED), "--seed", str(SEED)],
 }
 BENCH_SF10 = ("bench_recovery", "bench_approx")
-BENCH_UNGATED = ("bench_sort_tax",)
+# phase 11: the dry-run's device counts (one pod, two pods) and the LM
+# serving driver's arguments (reduced config)
+DRYRUN_DEVICES = (256, 512)
+SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--tokens", "16"]
 
 
 _T0 = time.perf_counter()
@@ -614,7 +630,7 @@ def run_main_path(dev):
     reference's results on it and the SQL-compiled plans."""
     from repro_torch import kernels as K
     from repro_torch.core import backend as B
-    from repro_torch.core.sortcount import LEGS, MAX_SORTS, SortCounter
+    from repro_torch.core.sortcount import LEGS, SortCounter, budgets
     from repro_torch.data import tpch
     from repro_torch.queries import QUERIES
     from repro_torch.sql import sql_queries
@@ -642,13 +658,14 @@ def run_main_path(dev):
             f"({time.perf_counter() - t3:.1f} s with the first upload)")
         log(f"SF {SF_MAIN} join={jm} sorts per query (planner on): "
             f"{json.dumps(sorts)}, total {sum(sorts.values())}")
-        # SF 1 may prove other key widths than sf 0.005's budgets, so only
-        # the planner-off budget bounds the planner-on count here
-        off = LEGS.index((jm, False))
-        over = {q: n for q, n in sorts.items() if n > MAX_SORTS[q][off]}
-        if over:
-            raise AssertionError(f"join={jm}: planner-on sorts above the "
-                                 f"planner-off budget: {over}")
+        # the counts do not depend on the device: SF 1's budgets are the
+        # CPU's counts under SF 1's key domains
+        on = LEGS.index((jm, True))
+        wrong = {q: (n, budgets(SF_MAIN)[q][on]) for q, n in sorts.items()
+                 if n != budgets(SF_MAIN)[q][on]}
+        if wrong:
+            raise AssertionError(f"join={jm}: sorts (count, budget) off SF "
+                                 f"{SF_MAIN}'s budget: {wrong}")
     for jm in ("sorted", "hash"):
         t3 = time.perf_counter()
         differ = {}
@@ -1390,8 +1407,8 @@ def run_benches(dev, db1, db10, card) -> None:
     on ``dev``, at ``BENCH_ARGS``' sizes: first those of ``BENCH_SF10`` on
     ``db10`` (its 1/16 rungs and their ranks built by phase 7c), then, with
     SF 10 off the card, the rest in ``run``'s order (SF 1 on ``db1``); the
-    gated benches with ``--check`` (any failed gate raises) but those of
-    ``BENCH_UNGATED``.  Reports go to ``results/torch``."""
+    gated benches with ``--check`` (any failed gate raises).  Reports go to
+    ``results/torch``."""
     import torch
     from repro_torch.bench import run as bench
     from repro_torch.bench.common import RESULTS, Datasets
@@ -1411,15 +1428,129 @@ def run_benches(dev, db1, db10, card) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     rest = [n for n in bench.ORDER if n not in first]
-    secs.update(bench.run([n for n in rest if n not in BENCH_UNGATED],
-                          str(dev), BENCH_ARGS, out_dir=RESULTS, check=True,
-                          data=data))
-    secs.update(bench.run([n for n in rest if n in BENCH_UNGATED],
-                          str(dev), BENCH_ARGS, out_dir=RESULTS, data=data))
+    secs.update(bench.run(rest, str(dev), BENCH_ARGS, out_dir=RESULTS,
+                          check=True, data=data))
     log(f"phase 10: {len(bench.ORDER)} benches passed in "
-        f"{time.perf_counter() - t0:.1f} s (every gate asked but "
-        f"{', '.join(BENCH_UNGATED)}'s), seconds each "
+        f"{time.perf_counter() - t0:.1f} s (every gate asked), seconds each "
         f"{json.dumps({k: round(v, 1) for k, v in secs.items()})} ({card})")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the SF 1000 dry-run and the examples
+# ---------------------------------------------------------------------------
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_dryrun(dev) -> None:
+    """11.1: the 22 plans at SF 1000 on each of ``DRYRUN_DEVICES``, priced
+    from the IR on the host; nothing is allocated on the card."""
+    import torch
+    from repro_torch.launch import dryrun_analytics as D
+    from repro_torch.queries import QUERIES
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    meta = D.metadata_db()
+    for n in DRYRUN_DEVICES:
+        t1 = time.perf_counter()
+        for q in sorted(QUERIES):
+            rec = D.dryrun_query(q, meta, n)
+            priced = rec["model_exchange_s_by_cluster"]
+            log(f"dry-run SF 1000 n={n} q{q}: {json.dumps(rec['plan'])}, "
+                f"{len(rec['exchanges'])} exchanges, "
+                f"{sum(e['message_bytes'] for e in rec['exchanges'])} "
+                f"message bytes; the model prices them at "
+                f"{priced['tpu_v5e'] * 1e3:.3f} ms on tpu_v5e, "
+                f"{priced['h100_ib'] * 1e3:.3f} ms on h100_ib; scans "
+                f"{rec['scan_bytes_per_dev']} B a device")
+        log(f"dry-run SF 1000 n={n}: 22 queries in "
+            f"{time.perf_counter() - t1:.2f} s of host time")
+    torch.cuda.synchronize(dev)
+    if torch.cuda.memory_allocated(dev) != held:
+        raise AssertionError("the dry-run allocated on the card: "
+                             f"{held} -> {torch.cuda.memory_allocated(dev)} B")
+    log(f"dry-run: {len(DRYRUN_DEVICES)} x 22 queries in "
+        f"{time.perf_counter() - t0:.2f} s; device memory allocated "
+        f"{held} B before and after (model prices, not measurements)")
+
+
+def run_examples(dev, db1, refs, card) -> dict[str, int]:
+    """11.2: the examples on the card, SF 1 on phase 4's database, held to
+    phase 4's reference ``refs``.  Returns the launch counts of the
+    examples' runs."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.queries import QUERIES
+    on_card = ["--device", str(dev)]
+    secs = {}
+    K.reset_launches()
+
+    t0 = time.perf_counter()
+    out = load_example("quickstart").main(on_card, db=db1)
+    for q in (1, 6, 19):
+        compare(out["results"][q], refs[q], f"quickstart q{q}")
+        if out["counts"][q] != QUERIES[q].static_counts():
+            raise AssertionError(f"quickstart q{q}: {out['counts'][q]}")
+    secs["quickstart"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = load_example("plan_quickstart").main(on_card, db=db1)
+    compare({"revenue": np.asarray([out["revenue_local"]])},
+            refs[6], "plan_quickstart q6")
+    compare(out["q1"], refs[1], "plan_quickstart q1")
+    secs["plan_quickstart"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = load_example("sql_quickstart").main(on_card, db=db1)
+    compare(out["local"], out["reference"], "sql_quickstart")
+    secs["sql_quickstart"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = load_example("groupby_paths").main(on_card, db=db1)
+    if out["sorts"] != {"sort": 1, "direct": 0, "hash": 0}:
+        raise AssertionError(f"groupby_paths sorts {out['sorts']}")
+    if "hash (sortless dictionary)" not in out["explain"][13]:
+        raise AssertionError(out["explain"][13])
+    secs["groupby_paths"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = load_example("analytics_distributed").main(on_card, db=db1)
+    for q in sorted(QUERIES):
+        compare(out[q]["result"], refs[q], f"analytics_distributed q{q}")
+        counts = QUERIES[q].static_counts()
+        if (out[q]["attempts"], out[q]["shuffles"], out[q]["broadcasts"]) \
+                != (1, counts["shuffles"], counts["broadcasts"]):
+            raise AssertionError(f"analytics_distributed q{q}: {out[q]}")
+    secs["analytics_distributed"] = time.perf_counter() - t0
+    counts = dict(K.launches)
+
+    before = dict(K.launches)
+    t0 = time.perf_counter()
+    out = load_example("serve_lm").main(SERVE_ARGS + on_card)
+    batch, tokens = int(SERVE_ARGS[1]), int(SERVE_ARGS[5])
+    if out["tokens"].shape != (batch, tokens) or out["tokens"].min() < 0:
+        raise AssertionError(f"serve_lm tokens {out['tokens'].shape}")
+    secs["serve_lm"] = time.perf_counter() - t0
+    log(f"serve_lm ({out['arch']}, reduced, float32): prefill "
+        f"{out['prefill_ms']:.1f} ms, decode {out['decode_ms']:.1f} ms for "
+        f"{tokens - 1} steps; launches {json.dumps(launch_delta(before))}")
+    log(f"examples at SF {SF_MAIN} on {dev}: equal to phase 4's reference, "
+        f"group-by paths' sorts 1 / 0 / 0, the distributed driver's 22 in "
+        f"one attempt each; seconds {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
+        f"({card})")
+    log(f"launches on the analytics examples: {json.dumps(counts)}")
+    require_launches(counts, ("segsum_sum", "segsum_count", "segsum_minmax",
+                              "hash_insert", "counting_rank"),
+                     "the analytics examples")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1844,6 +1975,10 @@ def main() -> int:
     # phase 10 on SF 10, still resident from phase 7c, then on SF 1;
     # phases 8 and 9 with both freed
     run_benches(dev, db1, db10, card)
+    t11 = time.perf_counter()
+    run_dryrun(dev)
+    run_examples(dev, db1, refs, card)
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
     probe_np = db10.tables["lineitem"]["l_orderkey"]
     build_np = db10.tables["orders"]["o_orderkey"]
     planner.invalidate_stats(db10)

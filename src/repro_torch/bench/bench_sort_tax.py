@@ -6,11 +6,11 @@ The reference counts HLO ``sort`` ops of a compiled plan; the port runs
 eagerly and counts the ``aten`` calls that sort while the plan runs
 (``core/sortcount.SortCounter``).  A multi-key ORDER BY is one HLO sort but
 one stable argsort a key here, so the port's budgets are its own:
-``sortcount.MAX_SORTS`` on the sorted-join, planner-on leg, the counts at
-``tpch.generate(0.005, seed=11)`` (the default database here).  At larger
-scale factors the planner may prove a group-by key too wide for the direct
-path and sort it, so a count above its budget there is reported, and the
-gate is meant for the budgets' own database.  The reference's own HLO
+``sortcount.budgets(sf)`` on the sorted-join, planner-on leg, counted at
+each scale the port runs (``sortcount.SCALES``): at larger scale factors
+the planner proves some group-by keys too wide for the direct path and
+sorts them (``sortcount.SCALE_GROUP_BYS``).  The default database is the
+reference's, ``tpch.generate(0.01, seed=7)``.  The reference's own HLO
 counts are carried beside, labelled as such.
 
 Also reported: the warm wall of ``run_local`` under each join method (best
@@ -22,7 +22,7 @@ propagation from cold column statistics).
 
 Writes ``--out`` (default ``results/torch/bench_sort_tax.json``).
 ``--check`` exits non-zero unless every query's sort count is within its
-budget.
+budget at the bench's scale factor (one of ``sortcount.SCALES``').
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ import time
 
 from repro_torch.core import backend as B
 from repro_torch.core import planner as PL
-from repro_torch.core.sortcount import LEGS, MAX_SORTS, SortCounter
+from repro_torch.core.sortcount import LEGS, SortCounter, budgets
 from repro_torch.core.table import Database
 from repro_torch.queries import PLANS, QUERIES
 
@@ -64,16 +64,17 @@ def _plan_times(db, qid: int, iters: int = 9) -> tuple[float, float]:
 
 
 def main(argv=None, data: Datasets | None = None) -> dict:
-    ap = parser(__doc__, sf=0.005, seed=11, out="bench_sort_tax")
+    ap = parser(__doc__, sf=0.01, seed=7, out="bench_sort_tax")
     ap.add_argument("--check", action="store_true",
                     help="exit non-zero unless every query meets its sort "
                          "budget")
     args = ap.parse_args(argv)
+    table = budgets(args.sf)
     dev, label = open_device(args.device)
     db = (data or Datasets()).tpch(args.sf, args.seed)
     report = {"sf": args.sf, "seed": args.seed, "device": label,
-              "budget": "sortcount.MAX_SORTS, sorted joins, planner on "
-                        "(counted at sf 0.005, seed 11)",
+              "budget": f"sortcount.budgets({args.sf}), sorted joins, "
+                        f"planner on",
               "queries": {}}
     ok = True
     for qid in BENCH_QUERIES:
@@ -87,7 +88,7 @@ def main(argv=None, data: Datasets | None = None) -> dict:
             B.run_local(q, db, device=dev)
         nsort = len(c.calls)
         build_ms, infer_ms = _plan_times(db, qid)
-        budget = MAX_SORTS[qid][LEG]
+        budget = table[qid][LEG]
         report["queries"][f"q{qid}"] = {
             "sorts": nsort, "max_sorts": budget,
             "reference_hlo_sort_budget": REFERENCE_HLO_SORT_BUDGET[qid],

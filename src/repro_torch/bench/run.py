@@ -37,7 +37,7 @@ SMALLEST = {
     "bench_skew": ["--sf", "0.005"],
     "bench_broadcast_impl": ["--sizes", "10"],
     "bench_q12_plans": ["--sf", "0.005"],
-    "bench_sort_tax": ["--sf", "0.005"],
+    "bench_sort_tax": ["--sf", "0.005", "--seed", "11"],
     "bench_recovery": ["--sf", "0.01", "--reps", "1"],
     "bench_serve": ["--sf", "0.01", "--reps", "1"],
     "bench_approx": ["--sf", "0.01", "--reps", "3"],

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["SORTING", "SortCounter", "LEGS", "MAX_SORTS"]
+__all__ = ["SORTING", "SortCounter", "LEGS", "MAX_SORTS", "SCALES",
+           "SCALE_GROUP_BYS", "MAX_SORTS_AT", "budgets"]
 
 SORTING = frozenset({"sort", "argsort", "topk", "unique", "_unique",
                      "_unique2", "unique_dim", "unique_consecutive",
@@ -87,3 +88,63 @@ MAX_SORTS = {
     21: (8, 11, 12, 15),
     22: (2, 4, 3, 5),
 }
+
+
+# The scales the port's tests, benches and chip_smoke.py run, (sf, seed):
+# each has budgets of its own below.
+SCALES = ((0.005, 11), (0.01, 7), (1.0, 11), (10.0, 11))
+
+# Group-bys whose key domain grows with the scale, by query, in plan order:
+# each is on one key column whose values are dense, 1..rows(sf) of the
+# owning table (orders 1.5 M x sf, customer 150 k x sf, part 200 k x sf,
+# supplier 10 k x sf).  The planner takes the direct path while
+# ``bit_length(rows) <= DIRECT_AGG_BITS_MAX`` (13, i.e. rows <= 8191;
+# ``planner.analyze``'s hint inference); past it the key's group bound,
+# rows, is past ``HASH_AGG_GROUPS_MAX`` (4096) too, so the hash path is out
+# and the group-by sorts once on each planner-on leg.  The planner-off legs
+# sort every group-by at every scale, so their budgets never move.
+#   orders (l_orderkey): 7500 rows, 13 bits at sf 0.005; 15000, 14 bits,
+#       at sf 0.01: Q3 (revenue per order), Q18 (quantity per order), Q21
+#       (lineitems and late lineitems per order, two group-bys).
+#   customer (o_custkey): 1500 rows, 11 bits at sf 0.01; 150000, 18 bits at
+#       SF 1: Q10 (revenue per customer), Q13 (orders per customer, ahead
+#       of its c_count histogram, which rides the hash dictionary at every
+#       scale), Q22 (orders per customer).
+#   part (ps_partkey, l_partkey): 2000 rows, 11 bits at sf 0.01; 200000,
+#       18 bits at SF 1: Q2 (min supply cost per part), Q11 (value per
+#       part), Q17 (average quantity per part).
+#   supplier (l_suppkey, ps_suppkey): 100 rows, 7 bits at sf 0.01; 10000,
+#       14 bits at SF 1: Q15 (revenue per supplier), Q20 (parts per
+#       supplier), Q21 (late lineitems per supplier).
+SCALE_GROUP_BYS = {
+    2: ("ps_partkey",), 3: ("l_orderkey",), 10: ("o_custkey",),
+    11: ("ps_partkey",), 13: ("o_custkey",), 15: ("l_suppkey",),
+    17: ("l_partkey",), 18: ("l_orderkey",), 20: ("ps_suppkey",),
+    21: ("l_suppkey", "l_orderkey", "l_orderkey"), 22: ("o_custkey",),
+}
+
+# The budgets at each scale of SCALES, in LEGS order: sf 0.005's are
+# MAX_SORTS; a larger scale adds one sort on each planner-on leg for each
+# group-by of SCALE_GROUP_BYS on the sort path there.
+_SF1 = {**MAX_SORTS,
+        2: (10, 10, 15, 15), 3: (5, 5, 7, 7), 10: (4, 4, 6, 6),
+        11: (3, 3, 4, 4), 13: (4, 5, 5, 6), 15: (3, 3, 4, 4),
+        17: (3, 3, 5, 5), 18: (5, 5, 7, 7), 20: (6, 6, 9, 9),
+        21: (11, 11, 15, 15), 22: (3, 4, 4, 5)}
+MAX_SORTS_AT = {
+    0.005: MAX_SORTS,
+    0.01: {**MAX_SORTS, 3: (5, 5, 7, 7), 18: (5, 5, 7, 7),
+           21: (10, 11, 14, 15)},
+    1.0: _SF1,
+    10.0: _SF1,
+}
+
+
+def budgets(sf: float) -> dict[int, tuple[int, ...]]:
+    """The per-query budgets (LEGS order) at scale factor ``sf``, one of
+    SCALES'."""
+    try:
+        return MAX_SORTS_AT[sf]
+    except KeyError:
+        raise ValueError(f"no sort budgets at sf {sf}; they are counted at "
+                         f"sf {sorted(MAX_SORTS_AT)}") from None

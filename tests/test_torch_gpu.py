@@ -900,3 +900,51 @@ def test_bench_run_at_smallest_sizes(cuda, tmp_path):
             assert checks[name] is True, (qid, name)
     assert all(r["snapshots"] >= 1
                for r in reports["bench_recovery"]["queries"].values())
+
+
+def _example(name: str):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["quickstart", "plan_quickstart",
+                                  "sql_quickstart", "groupby_paths",
+                                  "analytics_distributed"])
+def test_example_on_the_card_equals_the_cpu(cuda, name):
+    """Each analytics example at sf 0.005 on its default device, the card,
+    against the same example on the CPU: the same rows and columns, integers
+    exactly, floats within the reference's rtol 1e-7; the grouped paths'
+    sorts 1 / 0 / 0 on the card too."""
+    mod = _example(name)
+    args = ["--sf", "0.005", "--seed", "11"]
+    got, want = mod.main(args), mod.main(args + ["--device", "cpu"])
+
+    def same(a, b, label):
+        if isinstance(b, dict):
+            assert sorted(a, key=str) == sorted(b, key=str), label
+            for k in b:
+                if k not in ("ms",):
+                    same(a[k], b[k], f"{label}/{k}")
+        elif isinstance(b, np.ndarray) and b.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-7, err_msg=label)
+        elif isinstance(b, float):
+            assert a == pytest.approx(b, rel=1e-7), label
+        elif isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=label)
+        else:
+            assert a == b, label
+    same(got, want, name)
+    if name == "groupby_paths":
+        assert got["sorts"] == {"sort": 1, "direct": 0, "hash": 0}
+
+
+def test_serve_lm_example_on_the_card(cuda):
+    out = _example("serve_lm").main(["--batch", "2", "--prompt-len", "8",
+                                     "--tokens", "4"])
+    assert out["tokens"].shape == (2, 4)

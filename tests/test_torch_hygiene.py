@@ -1,17 +1,24 @@
 """Import hygiene of the port: ``repro_torch`` (its serving and
-approximate layers included), ``chip_smoke.py`` and the port's timing tools
+approximate layers and the SF 1000 dry-run included), ``chip_smoke.py``,
+the port's examples (``examples/torch_*.py``) and its timing tools
 (``tools/time_*.py``) never import ``jax`` or anything of the reference
-package ``repro``."""
+package ``repro``; every example resolves its device through
+``core/table.py::resolve_device``, ``cuda`` unless asked for another."""
 import os
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|jaxlib|repro)(\.|\s|,|$)|from\s+(jax|jaxlib|repro)(\.|\s))",
     re.M)
+
+
+_EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _run(code: str, **env):
@@ -82,8 +89,9 @@ print("ok")
 
 def test_sources_import_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("time_*.py"))
-    assert len(files) > 15
+        [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("time_*.py")) \
+        + _EXAMPLES
+    assert len(files) > 15 and len(_EXAMPLES) == 6
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
@@ -129,3 +137,39 @@ print("ok")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
     assert (tmp_path / "bench_exchange_bytes.json").is_file()
+
+
+@pytest.mark.parametrize("path", _EXAMPLES, ids=lambda p: p.stem)
+def test_example_resolves_its_device(path):
+    text = path.read_text()
+    assert "resolve_device(args.device)" in text
+    assert 'ap.add_argument("--device", default="cuda")' in text
+
+
+def test_dryrun_and_examples_run_with_jax_and_reference_blocked(tmp_path):
+    code = f"""
+import importlib.util
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+from repro_torch.launch import dryrun_analytics
+recs = dryrun_analytics.main(["--queries", "9,13", "--out", {str(tmp_path)!r}])
+assert [r["plan"]["shuffles"] for r in recs] == [1, 1]
+for path in {[str(p) for p in _EXAMPLES]!r}:
+    spec = importlib.util.spec_from_file_location("ex", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+mod = importlib.util.module_from_spec(importlib.util.spec_from_file_location(
+    "qs", {str(ROOT / "examples" / "torch_quickstart.py")!r}))
+mod.__spec__.loader.exec_module(mod)
+out = mod.main(["--sf", "0.002", "--device", "cpu"])
+assert out["q1_flags"] == ["A", "N", "N", "R"]
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
+            and sys.modules[m] is not None]
+print("ok")
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    assert (tmp_path / "q9_256.json").is_file()
