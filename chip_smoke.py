@@ -146,6 +146,31 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      against the float32 one: in bf16, rounding alone moves the plain path
      about as far, so the bf16 kernel path, and bf16 prefill against
      forward, must lie no further than 1.1x that.
+ 12. (after 9) the model families at published widths, bf16 weights from a
+     seeded generator on the card, each model freed before the next
+     (``FAMILY_RUNS``): Granite-MoE-3B-A800M in full (32 layers, 40
+     experts padded to 48, top-8), DeepSeek-V2 at depth 4 of 60 (its dense
+     first layer and 3 MoE layers; MLA, 160 experts top-6 and 2 shared),
+     Zamba2-1.2B and RWKV6-3B in full.  Each: a forward with launch counters
+     reset just before and read just after (the counting rank once per
+     MoE layer, all three-pass; the flash kernel once per GQA attention,
+     the shared block's included, all tensor-core; none for MLA), the
+     median of 3 timed forwards, peak device memory, the busy share and
+     device time by kernel of a profiled one; ``serve_lm.generate``
+     (prefill ms, decode ms a step; the SSMs' prefill is their Python time
+     loop).  The first router's and the first flash attention's inputs and
+     outputs are captured in a forward of the real model: the router's
+     destinations through the counting rank equal ``counting_rank_ref``'s
+     exactly; the flash kernel's output (Granite: B 2, 24/8 heads, group 3,
+     S 4096, D 64; Zamba2's shared block) lies within phase 8's bf16 limits
+     of the plain version on the same q, k, v; Granite's first MoE layer in
+     float32 against a plain per-expert version under the same routing
+     (relative L2 <= 1e-4, slots equal).  Then, in float32 at full width
+     and reduced depth: for Granite and Zamba2 the logits with the flash
+     kernel against those without, as phase 9 (relative L2 <= 1e-4, top-1
+     agreement >= 0.99); Granite's prefill against forward and the SSMs'
+     prefill-then-decode against forward (relative L2 <= 1e-4, argmax
+     equal).
 
 It prints the card line and a ``{"kernels": [...]}`` line before the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -227,6 +252,30 @@ BENCH_SF10 = ("bench_recovery", "bench_approx")
 # serving driver's arguments (reduced config)
 DRYRUN_DEVICES = (256, 512)
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--tokens", "16"]
+# phase 12: the model families at published widths.  Per family: the depth
+# cut (None: full depth), the forward's (B, S) (the SSMs' forward is a
+# Python loop over time steps, so their long prompt is generate's prefill,
+# and the forward, profiled too, is short), generate's (batch, prompt, new
+# tokens; new - 1 decode steps follow the prefill's token), and the depth
+# of the float32 comparison at full width.  DeepSeek-V2 keeps its
+# first (dense) layer and 3 MoE layers of 60: 236 B parameters are ~472 GB
+# in bf16 against the card's 80 GB, the cut ~25 GB
+FAMILY_RUNS = {
+    "granite_moe_3b_a800m": dict(layers=None, forward=(2, 4096),
+                                 generate=(4, 512, 32), f32_layers=4),
+    "deepseek_v2_236b": dict(layers=4, forward=(1, 2048),
+                             generate=(2, 512, 16), f32_layers=None),
+    "zamba2_1_2b": dict(layers=None, forward=(4, 64),
+                        generate=(4, 512, 33), f32_layers=8),
+    "rwkv6_3b": dict(layers=None, forward=(4, 64),
+                     generate=(4, 512, 33), f32_layers=4),
+}
+# the float32 checks: prefill's last-token logits against forward's (the
+# MoE; B 1 x S 1024) and prefill of half the tokens then step-by-step
+# decode against forward (the SSMs; B 2 x S 64), relative L2; one MoE
+# layer against its plain version under the same routing
+FAMILY_F32_SEQ = {"moe": (1, 1024), "ssm": (2, 64)}
+FAMILY_F32_REL_L2 = 1e-4
 
 
 _T0 = time.perf_counter()
@@ -1921,6 +1970,375 @@ def top1_agreement(a, b) -> float:
     return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model families at published widths
+# ---------------------------------------------------------------------------
+
+def family_config(arch: str, layers: int | None):
+    """The published config, its depth cut to ``layers`` where given."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def family_model(cfg, dev, dtype, card, use_flash_kernel=True):
+    """The model with weights from a generator seeded with ``SEED`` on the
+    card; returns it and the generator."""
+    import torch
+    from repro_torch.models import Model
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, dtype=dtype, generator=g,
+                  use_flash_kernel=use_flash_kernel)
+    torch.cuda.synchronize(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B parameters in {str(dtype)[6:]} "
+        f"({torch.cuda.memory_allocated(dev) / 1e9:.2f} GB), drawn on the "
+        f"card in {time.perf_counter() - t0:.1f} s ({card})")
+    return model, g
+
+
+def family_forward(model, tokens, label, card):
+    """One counted forward (launch counters reset just before, read just
+    after), then the median of ``REPS`` timed ones and the device time by
+    kernel of a profiled one.  Returns the launch counts."""
+    import torch
+    from repro_torch import kernels as K
+    dev = model.device
+    b, s = tokens.shape
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_launches()
+        logits = model(tokens)
+        torch.cuda.synchronize(dev)
+        counts = {k: v for k, v in K.launches.items() if v}
+        if logits.shape != (b, s, model.padded_vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{label} forward: logits "
+                                 f"{tuple(logits.shape)} not finite or of "
+                                 f"the wrong shape")
+        del logits
+        runs = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            model(tokens)
+            torch.cuda.synchronize(dev)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(runs)
+        log(f"{label} forward B={b} S={s}: median of {REPS} {med:.1f} ms "
+            f"({b * s / med * 1e3:.0f} tokens/s; runs "
+            f"{', '.join(f'{r:.1f}' for r in runs)}); peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; launches "
+            f"{json.dumps(counts)} ({card})")
+        by_name = device_time_by_kernel(lambda: model(tokens))
+        log(busy_line(f"{label} forward B={b} S={s}",
+                      sum(by_name.values()), med) + f" ({card})")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"{label} forward B={b} S={s} device time by kernel: " +
+            "; ".join(f"{name[:64]} {ms:.1f} ms" for name, ms in top))
+    return counts
+
+
+def family_generate(model, g, shape, label, card) -> None:
+    """``serve_lm.generate`` of ``new`` tokens after prompts (batch,
+    prompt): prefill ms, decode ms a step."""
+    import torch
+    from repro_torch.launch import serve_lm
+    batch, prompt, new = shape
+    prompts = torch.randint(0, model.cfg.vocab, (batch, prompt),
+                            generator=g, device=model.device)
+    torch.cuda.reset_peak_memory_stats(model.device)
+    out = serve_lm.generate(model, prompts, new, 0.8, g)
+    ids = out.tokens
+    if ids.shape != (batch, new) or \
+            not bool(((ids >= 0) & (ids < model.cfg.vocab)).all()):
+        raise AssertionError(f"{label} generate: ids {tuple(ids.shape)} out "
+                             f"of range")
+    steps = new - 1
+    log(f"{label} generate B={batch} prompt={prompt} new={new}: prefill "
+        f"{out.prefill_s * 1e3:.1f} ms, decode "
+        f"{out.decode_s / steps * 1e3:.2f} ms a step over {steps} steps, "
+        f"{batch * steps / out.decode_s:.1f} decoded tokens/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated(model.device) / 1e9:.2f} "
+        f"GB; first ids {ids[0, :8].tolist()} ({card})")
+
+
+class FirstCall:
+    """While open, wraps ``module.name`` so that its first call's arguments
+    and result are kept (``args``, ``kwargs``, ``out``): what the real
+    forward passed to a layer, read without a second copy of the forward."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.args = self.kwargs = self.out = None
+
+    def __enter__(self):
+        self.fn = fn = getattr(self.module, self.name)
+
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if self.out is None:
+                self.args, self.kwargs, self.out = args, kwargs, out
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.fn)
+
+
+def check_router_dest(routed: FirstCall, e: int, i: int, label: str,
+                      card: str) -> None:
+    """Layer ``i``'s real router destinations (``routed``: its call of
+    ``moe.route`` in the forward) through the counting rank (the kernel)
+    against ``counting_rank_ref`` on the card, exactly; both timed."""
+    import torch
+    from repro_torch.core.exchange import _dispatch_offsets
+    from repro_torch.kernels.radix_hist import ops as rh
+    from repro_torch.kernels.radix_hist.ref import counting_rank_ref
+    with torch.inference_mode():
+        dest = routed.out[2].reshape(-1).to(torch.int32)
+        slot, counts = _dispatch_offsets(dest, e)
+        want_slot, want_counts = counting_rank_ref(dest, e + 1)
+        if not (torch.equal(slot, want_slot) and
+                torch.equal(counts, want_counts[:e])):
+            raise AssertionError(f"{label} layer {i}: the counting rank's "
+                                 f"slots differ from counting_rank_ref's")
+        ms = time_ms(lambda: _dispatch_offsets(dest, e))
+        plain_ms = time_ms(lambda: counting_rank_ref(dest, e + 1), reps=2)
+    log(f"{label} layer {i} router: {dest.numel()} (token, expert) pairs "
+        f"into {e + 1} bins (width {e + 2}, {rh.rank_design(e + 2)}), slots "
+        f"equal counting_rank_ref's; rank {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms; the busiest expert takes {int(counts.max())} pairs ({card})")
+
+
+def check_family_flash(attended: FirstCall, label: str, card: str) -> None:
+    """The flash kernel's output in the forward (``attended``: its first
+    call there, on the layer's real q, k, v) against the plain version on
+    the same inputs, under phase 8's bf16 limits: within one output
+    rounding element by element and 2e-2 max abs."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v = attended.args
+    got = attended.out
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    with torch.inference_mode():
+        want = ref.attention_ref(q.reshape(b * hq, s, d),
+                                 k.reshape(b * hkv, -1, d),
+                                 v.reshape(b * hkv, -1, d),
+                                 causal=attended.kwargs["causal"]
+                                 ).reshape(got.shape)
+        over = excess(got, want, FLASH_BF16_RTOL, FLASH_BF16_ATOL)
+        err = (got.float() - want.float()).abs().max().item()
+    log(f"{label} flash_attention in the forward (B {b}, Hq {hq}, Hkv {hkv},"
+        f" group {hq // hkv}, S {s}, D {d}, {str(q.dtype)[6:]}, "
+        f"{ops.design(q.dtype, d)}) against the plain version: max abs err "
+        f"{err:.3e}, largest excess over one output rounding (rtol "
+        f"{FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}) {over:.3e} ({card})")
+    if not (over <= 0 and err <= 2e-2):
+        raise AssertionError(f"{label}: the flash kernel in the forward is "
+                             f"beyond one output rounding of the plain "
+                             f"version by {over} (max abs err {err})")
+
+
+def plain_dispatch(p, cfg, xt, top_w, top_e, e: int, cap: int):
+    """The routed experts' output (T, d) float32 by a stable sort for the
+    slots and one product per expert over its kept tokens."""
+    import torch
+    from repro_torch.models.common import glu_act
+    t, d = xt.shape
+    k = cfg.top_k
+    dest = top_e.reshape(t * k)
+    order = torch.sort(dest, stable=True).indices
+    first = torch.searchsorted(dest[order], torch.arange(e, device=xt.device))
+    slot = torch.empty_like(dest)
+    slot[order] = torch.arange(t * k, device=xt.device) - first[dest[order]]
+    token_of = torch.arange(t * k, device=xt.device) // k
+    w = top_w.reshape(t * k)
+    out = torch.zeros((t, d), dtype=torch.float32, device=xt.device)
+    for j in range(e):
+        pairs = ((dest == j) & (slot < cap)).nonzero().squeeze(1)
+        if pairs.numel():
+            xj = xt[token_of[pairs]].float()
+            y = glu_act(xj @ p["w_gate"][j].float(), xj @ p["w_up"][j].float(),
+                        cfg.act) @ p["w_down"][j].float()
+            out.index_add_(0, token_of[pairs], y * w[pairs, None])
+    return out, slot
+
+
+def check_moe_layer_f32(model, i: int, xt, label: str) -> None:
+    """One MoE layer in float32 on the card: the dispatch through the
+    counting rank against :func:`plain_dispatch` under the same routing
+    (so a near-tie in the top-k cannot flip an expert): slots equal,
+    output within relative L2 ``FAMILY_F32_REL_L2``."""
+    import torch
+    from repro_torch.models import moe
+    cfg, e = model.cfg, model.padded_experts
+    p = {k: v.float() for k, v in model.layers[i].moe.items()}
+    x32 = xt.float()
+    with torch.inference_mode():
+        _, top_w, top_e = moe.route(p, cfg, x32, e)
+        cap = moe.capacity(x32.shape[0], cfg, e, model.capacity_factor)
+        got, slot, _ = moe.dispatch(p, cfg, x32, top_w, top_e, e, cap)
+        want, want_slot = plain_dispatch(p, cfg, x32, top_w, top_e, e, cap)
+    rel = rel_l2(got, want)
+    kept = float((slot < cap).float().mean())
+    log(f"{label} layer {i} in float32 ({x32.shape[0]} tokens, capacity "
+        f"{cap}, kept {kept:.4f} of the pairs): the dispatch against the "
+        f"plain per-expert version under the same routing: relative L2 "
+        f"{rel:.3e}, slots equal {bool(torch.equal(slot.long(), want_slot))}")
+    if not (torch.equal(slot.long(), want_slot) and rel <= FAMILY_F32_REL_L2):
+        raise AssertionError(f"{label}: the MoE layer differs from its plain "
+                             f"version: rel L2 {rel}")
+
+
+def check_kernel_f32(model, tokens, label: str):
+    """Float32: the logits through the flash kernel against those through
+    the plain attention, as phase 9 holds them (relative L2 <=
+    ``FAMILY_F32_REL_L2``, top-1 agreement >= 0.99).  Returns the plain
+    path's logits."""
+    import torch
+    b, s = tokens.shape
+    with torch.inference_mode():
+        fast, plain = logits_with_and_without_kernel(model, tokens)
+    rel, top1 = rel_l2(fast, plain), top1_agreement(fast, plain)
+    log(f"{label} float32 B={b} S={s}: logits with the flash kernel vs "
+        f"without: relative L2 {rel:.3e}, top-1 agreement {top1:.4f}")
+    if not (rel <= FAMILY_F32_REL_L2 and top1 >= 0.99):
+        raise AssertionError(f"{label}: forward with the kernel differs from "
+                             f"forward without (float32): rel L2 {rel}, "
+                             f"top-1 {top1}")
+    return plain
+
+
+def check_prefill_f32(model, g, label: str) -> None:
+    """Float32, full width: the logits with the flash kernel against those
+    without (:func:`check_kernel_f32`), then prefill's last-token logits
+    against those of the plain-attention forward (both run the same
+    routing on the same inputs)."""
+    import torch
+    b, s = FAMILY_F32_SEQ["moe"]
+    tokens = torch.randint(0, model.cfg.vocab, (b, s), generator=g,
+                           device=model.device)
+    full = check_kernel_f32(model, tokens, label)[:, -1]
+    with torch.inference_mode():
+        last, _ = model.prefill(tokens, model.init_cache(b, s + 8))
+        last = last[:, 0].float()
+    rel = rel_l2(last, full)
+    same = bool((last.argmax(-1) == full.argmax(-1)).all())
+    log(f"{label} float32 B={b} S={s}: prefill's last-token logits vs "
+        f"forward's: relative L2 {rel:.3e}, argmax equal {same}")
+    if not (rel <= FAMILY_F32_REL_L2 and same):
+        raise AssertionError(f"{label}: prefill's last-token logits differ "
+                             f"from forward's (float32): rel L2 {rel}")
+
+
+def check_decode_f32(model, g, label: str, attention: bool) -> None:
+    """Float32, full width: where the model has attention, the logits with
+    the flash kernel against those without (:func:`check_kernel_f32`);
+    then forward's last-token logits against prefill of the first half and
+    step-by-step decode of the rest (the reference's
+    ``tests/test_models.py`` check)."""
+    import torch
+    b, s = FAMILY_F32_SEQ["ssm"]
+    half = s // 2
+    tokens = torch.randint(0, model.cfg.vocab, (b, s), generator=g,
+                           device=model.device)
+    if attention:
+        check_kernel_f32(model, tokens, label)
+    with torch.inference_mode():
+        full = model(tokens)[:, -1].float()
+        logits, cache = model.prefill(tokens[:, :half],
+                                      model.init_cache(b, s + 4))
+        for i in range(half, s):
+            logits, cache = model.decode(tokens[:, i:i + 1], cache, i)
+        last = logits[:, 0].float()
+    rel = rel_l2(last, full)
+    same = bool((last.argmax(-1) == full.argmax(-1)).all())
+    log(f"{label} float32 B={b} S={s}: prefill of {half} then {s - half} "
+        f"decode steps vs forward's last-token logits: relative L2 "
+        f"{rel:.3e}, argmax equal {same}")
+    if not (rel <= FAMILY_F32_REL_L2 and same):
+        raise AssertionError(f"{label}: decode differs from forward "
+                             f"(float32): rel L2 {rel}")
+
+
+def free_model(dev) -> None:
+    import torch
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+
+
+def run_families(dev, card) -> dict[str, dict]:
+    """Phase 12: each family at its published widths in bf16, freed before
+    the next.  Returns each one's forward launch counts."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import AttnBlock
+    torch.backends.cuda.matmul.allow_tf32 = False     # full float32 GEMMs
+    out = {}
+    for arch, run in FAMILY_RUNS.items():
+        t0 = time.perf_counter()
+        cfg = family_config(arch, run["layers"])
+        label = cfg.name
+        if run["layers"] is not None:
+            label += (f" (depth cut {family_config(arch, None).n_layers} -> "
+                      f"{cfg.n_layers})")
+        model, g = family_model(cfg, dev, torch.bfloat16, card)
+        b, s = run["forward"]
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev)
+        ssm = cfg.family in ("hybrid", "ssm")
+        counts = family_forward(model, tokens, label, card)
+        moe_layers = [i for i, layer in enumerate(model.layers)
+                      if isinstance(layer, AttnBlock) and layer.kind == "moe"]
+        # GQA attention runs the flash kernel in a forward; MLA never does
+        n_flash = 0 if cfg.use_mla else len(model.shared_after) + sum(
+            isinstance(layer, AttnBlock) for layer in model.layers)
+        want = {"counting_rank": len(moe_layers), "counting_rank_onepass": 0,
+                "flash_attention": n_flash, "flash_attention_wgmma": n_flash}
+        got = {k: counts.get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"{label} forward launched {got}, want "
+                                 f"{want}")
+        # the inputs and outputs of the first router and the first flash
+        # attention, captured in a forward of the real model
+        with torch.inference_mode(), FirstCall(moe, "route") as routed, \
+                FirstCall(fa_ops, "flash_attention") as attended:
+            model(tokens)
+        if moe_layers:
+            check_router_dest(routed, model.padded_experts, moe_layers[0],
+                              label, card)
+            if run["f32_layers"] is not None:
+                check_moe_layer_f32(model, moe_layers[0], routed.args[2],
+                                    label)
+        if n_flash:
+            check_family_flash(attended, label, card)
+        del routed, attended
+        family_generate(model, g, run["generate"], label, card)
+        del model, tokens
+        free_model(dev)
+        if run["f32_layers"] is not None:
+            cfg32 = family_config(arch, run["f32_layers"])
+            model, g = family_model(cfg32, dev, torch.float32, card)
+            label32 = f"{cfg.name} ({cfg32.n_layers} layers)"
+            if ssm:
+                check_decode_f32(model, g, label32, attention=n_flash > 0)
+            else:
+                check_prefill_f32(model, g, label32)
+            del model
+            free_model(dev)
+        out[arch] = counts
+        log(f"phase 12 {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1995,6 +2413,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     lm_counts = run_lm_path(dev)
+    free_model(dev)
+    t12 = time.perf_counter()
+    family_counts = run_families(dev, card)
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s; forward launches "
+        f"{json.dumps(family_counts)}")
     # each kernel's launches on the path that runs it: the local main path,
     # the distributed path (the counting rank), the skew statistics, the
     # 32-bit join probe, one forward of the LM path

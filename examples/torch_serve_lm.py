@@ -2,13 +2,13 @@
 decode with sampling.
 
     PYTHONPATH=src python examples/torch_serve_lm.py \
-        [--arch mistral_nemo_12b] [--tokens 32] [--device cpu]
+        [--arch rwkv6_3b] [--tokens 32] [--device cpu]
 
-Serves the reduced form of a dense-GQA config with random weights from a
-seeded generator (the reference's default, rwkv6_3b, is not ported: the
-port's model refuses it), float32, sampling with a seeded
-``torch.Generator``.  Runs on ``cuda`` unless ``--device`` names another
-device; without CUDA the default raises.
+Serves the reduced form of a config (default rwkv6_3b, as
+``examples/serve_lm.py``) with random weights from a seeded generator,
+float32, the experts unpadded (``expert_pad=1``, as there), sampling with a
+seeded ``torch.Generator``.  Runs on ``cuda`` unless ``--device`` names
+another device; without CUDA the default raises.
 """
 import argparse
 
@@ -25,7 +25,7 @@ def main(argv=None) -> dict:
     """Prints what the reference's driver prints; returns the generated
     token ids and the prefill and decode times."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="mistral_nemo_12b")
+    ap.add_argument("--arch", default="rwkv6_3b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=32)
@@ -35,7 +35,7 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
 
     cfg = get_config(args.arch).reduced()
-    model = Model(cfg, device=dev, dtype=torch.float32,
+    model = Model(cfg, device=dev, dtype=torch.float32, expert_pad=1,
                   generator=torch.Generator(device=dev).manual_seed(0))
     print(f"serving {cfg.name} (reduced) batch={args.batch}")
 

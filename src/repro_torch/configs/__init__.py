@@ -3,7 +3,8 @@ from ``repro.configs``.
 
 ``iter_cells()`` enumerates every (arch x shape) cell; pure full-attention
 archs skip long_500k.  The reference's ``input_specs`` builds JAX shape
-stand-ins for its dry-run and comes with the tooling slice (ROADMAP A11).
+stand-ins for its dry-run and comes with the LM dry-run (ROADMAP queue A,
+item 1).
 """
 from __future__ import annotations
 

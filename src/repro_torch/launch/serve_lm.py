@@ -1,12 +1,13 @@
 """Batched serving driver: prefill a batch of prompts, then decode with
 sampling, as ``examples/serve_lm.py`` of the reference does.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve_lm [--arch gemma_7b] \\
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm [--arch rwkv6_3b] \\
         [--tokens 32] [--device cpu]
 
-The CLI serves the reduced form of a dense-GQA config (the reference's
-default, rwkv6_3b, is not ported yet) with random weights; without
-``--device`` it runs on ``cuda`` and raises where there is none.
+The CLI serves the reduced form of any assigned config (default rwkv6_3b,
+as the reference's example) with random weights and the experts unpadded
+(``expert_pad=1``, as the reference's example); without ``--device`` it
+runs on ``cuda`` and raises where there is none.
 :func:`generate` is the entry point the chip smoke run drives at full width.
 """
 from __future__ import annotations
@@ -70,7 +71,7 @@ def generate(model: Model, prompts: torch.Tensor, tokens: int,
 
 def main(argv: list[str] | None = None) -> Generation:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="mistral_nemo_12b")
+    ap.add_argument("--arch", default="rwkv6_3b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=32)
@@ -80,7 +81,7 @@ def main(argv: list[str] | None = None) -> Generation:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch).reduced()
-    model = Model(cfg, device=args.device, dtype=torch.float32)
+    model = Model(cfg, device=args.device, dtype=torch.float32, expert_pad=1)
     dev = model.device
     print(f"serving {cfg.name} (reduced) batch={args.batch} on {dev}")
     rng = np.random.default_rng(0)

@@ -1,4 +1,5 @@
-"""The language-model zoo's dense-GQA path (see transformer.Model)."""
+"""The language-model zoo: the serving path of all ten assigned
+architectures (see transformer.Model)."""
 from .common import ArchConfig
 from .transformer import Model
 

@@ -1,11 +1,14 @@
-"""Attention of the dense blocks: GQA/MQA with RoPE, an optional QKV bias and
-the prefix-LM mask, as the GQA half of ``repro.models.attention``.
+"""Attention variants of ``repro.models.attention``: GQA/MQA with RoPE, an
+optional QKV bias and the prefix-LM mask, and MLA (DeepSeek-V2's low-rank
+KV compression, whose cache holds the latent only).
 
 Training-style forward and prefill run on full (B, S, D); decode takes one
-token against a static-capacity KV cache (B, L, KV, hd).  The reference
-updates its cache functionally; here the cache tensors are written in
-place, which keeps one copy of each layer's cache alive.  MLA (DeepSeek-V2)
-is not ported yet (ROADMAP A11).
+token against a static-capacity cache: (B, L, KV, hd) keys and values for
+GQA, the (B, L, kv_lora_rank) latent and the (B, L, 1, qk_rope_dim) shared
+rotary key for MLA.  The reference updates its cache functionally; here the
+cache tensors are written in place, which keeps one copy of each layer's
+cache alive.  MLA runs the plain attention whatever ``use_flash_kernel``
+says, as the reference's does.
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import NEG_INF
-from .common import ArchConfig, apply_rope, dense_init
+from .common import (ArchConfig, apply_rope, dense_init, param_dict,
+                     rms_norm)
 
 
 def _at_pos(cache_arr: torch.Tensor, update: torch.Tensor,
@@ -40,8 +44,7 @@ def init_gqa(cfg: ArchConfig, gen: torch.Generator,
     if cfg.qkv_bias:
         for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
             p[name] = torch.zeros(width, dtype=dtype, device=gen.device)
-    return nn.ParameterDict({k: nn.Parameter(w, requires_grad=False)
-                             for k, w in p.items()})
+    return param_dict(p)
 
 
 def _qkv(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
@@ -136,3 +139,113 @@ def gqa_decode(p, cfg: ArchConfig, x: torch.Tensor,
     mask = (torch.arange(l, device=x.device) <= pos).expand(b, 1, l)
     o = _sdpa(q, ck, cv, mask, 1.0 / (cfg.hd ** 0.5))
     return o.reshape(b, 1, -1) @ p["wo"], {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank KV compression; the cache holds the latent only
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ArchConfig, gen: torch.Generator,
+             dtype: torch.dtype) -> nn.ParameterDict:
+    """The query's and the key-value's down and up projections, their RMS
+    norm scales (zero at init) and wo, in the reference's (in, out)
+    layout."""
+    d, h = cfg.d_model, cfg.n_heads
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    z = lambda n: torch.zeros(n, dtype=dtype, device=gen.device)
+    return param_dict({
+        "wq_a": dense_init(gen, (d, cfg.q_lora_rank), dtype),
+        "q_norm": z(cfg.q_lora_rank),
+        "wq_b": dense_init(gen, (cfg.q_lora_rank, h * qd), dtype),
+        "wkv_a": dense_init(gen, (d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                            dtype),
+        "kv_norm": z(cfg.kv_lora_rank),
+        "wkv_b": dense_init(gen, (cfg.kv_lora_rank,
+                                  h * (cfg.qk_nope_dim + cfg.v_head_dim)),
+                            dtype),
+        "wo": dense_init(gen, (h * cfg.v_head_dim, d), dtype)})
+
+
+def _mla_qkv(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    """-> q_nope (B,S,H,nd), q_rope (B,S,H,rd), the normed latent c_kv
+    (B,S,kv_lora_rank) and the rotated shared key k_rope (B,S,1,rd)."""
+    b, s, _ = x.shape
+    nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps,
+                 cfg.norms_f32) @ p["wq_b"]
+    q = q.reshape(b, s, cfg.n_heads, nd + rd)
+    q_nope = q[..., :nd]
+    q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta)
+    kv_a = x @ p["wkv_a"]
+    c_kv = rms_norm(kv_a[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps,
+                    cfg.norms_f32)
+    k_rope = apply_rope(kv_a[..., None, cfg.kv_lora_rank:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope,
+                mask: torch.Tensor | None) -> torch.Tensor:
+    """Expand the latent to per-head keys and values and attend, (B,S,*)
+    against (B,L,*): float32 scores and softmax, the output in q's dtype,
+    then wo."""
+    b, s, h = q_nope.shape[0], q_nope.shape[1], cfg.n_heads
+    l = c_kv.shape[1]
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kv = (c_kv @ p["wkv_b"]).reshape(b, l, h, nd + vd)
+    k_nope, v = kv[..., :nd], kv[..., nd:]
+    scale = 1.0 / ((nd + rd) ** 0.5)
+    s_nope = torch.einsum("bshd,blhd->bhsl", q_nope.float(), k_nope.float())
+    s_rope = torch.einsum("bshd,blkd->bhsl", q_rope.float(),
+                          k_rope.float())           # one shared key head
+    scores = (s_nope + s_rope) * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhsl,blhd->bshd", w, v.float()).to(q_nope.dtype)
+    return o.reshape(b, s, h * vd) @ p["wo"]
+
+
+def mla_forward(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+                n_prefix: int = 0, use_flash_kernel: bool = False
+                ) -> torch.Tensor:
+    """The plain attention whatever ``use_flash_kernel`` says, as the
+    reference's."""
+    b, s, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    return _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope,
+                       causal_mask(b, s, n_prefix, x.device))
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device: torch.device | str
+                   ) -> dict[str, torch.Tensor]:
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_len, 1, cfg.qk_rope_dim),
+                                 dtype=dtype, device=device)}
+
+
+def mla_prefill(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+                cache: dict[str, torch.Tensor], n_prefix: int = 0):
+    b, s, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    cache = {"ckv": _at_pos(cache["ckv"], c_kv, 0),
+             "krope": _at_pos(cache["krope"], k_rope, 0)}
+    o = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope,
+                    causal_mask(b, s, n_prefix, x.device))
+    return o, cache
+
+
+def mla_decode(p, cfg: ArchConfig, x: torch.Tensor,
+               cache: dict[str, torch.Tensor], pos: int):
+    """x (B, 1, D); attend over the latent cache[:, : pos + 1]."""
+    b = x.shape[0]
+    l = cache["ckv"].shape[1]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    ckv = _at_pos(cache["ckv"], c_kv, pos)
+    krope = _at_pos(cache["krope"], k_rope, pos)
+    mask = (torch.arange(l, device=x.device) <= pos).expand(b, 1, l)
+    o = _mla_attend(p, cfg, q_nope, q_rope, ckv, krope, mask)
+    return o, {"ckv": ckv, "krope": krope}

@@ -15,6 +15,7 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,3 +170,10 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
     return w.mul_(std).to(dtype)
+
+
+def param_dict(p: dict[str, torch.Tensor]) -> nn.ParameterDict:
+    """Weights as parameters without gradients (training is a later slice),
+    under the reference's leaf names."""
+    return nn.ParameterDict({k: nn.Parameter(w, requires_grad=False)
+                             for k, w in p.items()})

@@ -1,0 +1,253 @@
+"""Sub-quadratic mixers of ``repro.models.ssm``: Mamba2 (the zamba2 hybrid)
+and RWKV6 "Finch".
+
+Both are O(S) in sequence length with an O(1) decode state.  The
+reference runs the recurrence under ``jax.lax.scan`` over time; here it is
+a Python loop over the time steps in plain PyTorch (the reference has no
+Pallas kernel for it, so the port owes no CUDA kernel).  Decode is the same
+forward on one token from the carried state.
+
+The decay and skip parameters (``a_log``, ``dt_bias``, ``d_skip``, ``w0``,
+``u``, ``ln_scale``) are float32 whatever the model's dtype, and so are the
+recurrent states, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import ArchConfig, dense_init, param_dict
+
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Mamba2
+# ---------------------------------------------------------------------------
+
+def _m2_dims(cfg: ArchConfig) -> tuple[int, int, int]:
+    """(d_inner, heads, head dim 64)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    hd = 64
+    return d_inner, d_inner // hd, hd
+
+
+def init_mamba2(cfg: ArchConfig, gen: torch.Generator,
+                dtype: torch.dtype) -> nn.ParameterDict:
+    d = cfg.d_model
+    d_inner, heads, _ = _m2_dims(cfg)
+    n = cfg.ssm_state
+    conv_ch = d_inner + 2 * n
+    dev = gen.device
+    return param_dict({
+        "w_in": dense_init(gen, (d, 2 * d_inner + 2 * n + heads), dtype),
+        "conv_w": dense_init(gen, (cfg.ssm_conv, conv_ch), dtype, scale=0.5),
+        "conv_b": torch.zeros(conv_ch, dtype=dtype, device=dev),
+        "a_log": torch.zeros(heads, dtype=F32, device=dev),
+        "dt_bias": torch.zeros(heads, dtype=F32, device=dev),
+        "d_skip": torch.ones(heads, dtype=F32, device=dev),
+        "w_out": dense_init(gen, (d_inner, d), dtype)})
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           state: torch.Tensor | None = None):
+    """x (B, S, C); w (K, C) depthwise causal; state (B, K-1, C) carry-in.
+    -> (silu(conv + b), the last K-1 inputs as the next state)."""
+    k = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, k):                       # the reference's order
+        out = out + xp[:, i:i + s] * w[i]
+    return F.silu(out + b), xp[:, -(k - 1):].clone()
+
+
+def _m2_split(cfg: ArchConfig, zxbcdt: torch.Tensor):
+    """The input projection -> (z, xbc, dt)."""
+    d_inner, heads, _ = _m2_dims(cfg)
+    n = cfg.ssm_state
+    z = zxbcdt[..., :d_inner]
+    xbc = zxbcdt[..., d_inner:d_inner + d_inner + 2 * n]
+    dt = zxbcdt[..., -heads:]
+    return z, xbc, dt
+
+
+def mamba2_forward(p, cfg: ArchConfig, x: torch.Tensor,
+                   conv_state: torch.Tensor | None = None,
+                   ssm_state: torch.Tensor | None = None):
+    """x (B, S, D) -> (y (B, S, D), (conv_state, ssm_state)); the SSM
+    state (B, H, hd, N) float32 runs ``h' = decay h + dt x (x) b`` and
+    ``y = h c`` one time step at a time."""
+    b, s, _ = x.shape
+    d_inner, heads, hd = _m2_dims(cfg)
+    n = cfg.ssm_state
+    z, xbc, dt = _m2_split(cfg, x @ p["w_in"])
+    xbc, conv_out = _causal_depthwise_conv(xbc, p["conv_w"], p["conv_b"],
+                                           conv_state)
+    xs = xbc[..., :d_inner].reshape(b, s, heads, hd)
+    bmat = xbc[..., d_inner:d_inner + n].float()             # (B,S,N)
+    cmat = xbc[..., d_inner + n:].float()                    # (B,S,N)
+    dt = F.softplus(dt.float() + p["dt_bias"])               # (B,S,H)
+    a = -torch.exp(p["a_log"])                               # (H,)
+    decay = torch.exp(dt * a)                                # (B,S,H)
+    dtx = dt[..., None] * xs.float()                         # (B,S,H,hd)
+
+    h = ssm_state if ssm_state is not None else \
+        torch.zeros((b, heads, hd, n), dtype=F32, device=x.device)
+    ys = []
+    for i in range(s):
+        h = h * decay[:, i, :, None, None] + \
+            dtx[:, i, :, :, None] * bmat[:, i, None, None, :]
+        ys.append(torch.einsum("bhdn,bn->bhd", h, cmat[:, i]))
+    y = torch.stack(ys, dim=1)                               # (B,S,H,hd)
+    y = y + p["d_skip"][None, None, :, None] * xs.float()
+    y = (y.reshape(b, s, d_inner) * F.silu(z.float())).to(x.dtype)
+    return y @ p["w_out"], (conv_out, h)
+
+
+def init_mamba2_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
+                      device: torch.device | str):
+    """(conv state (B, K-1, C) in ``dtype``, SSM state (B, H, hd, N)
+    float32)."""
+    d_inner, heads, hd = _m2_dims(cfg)
+    conv_ch = d_inner + 2 * cfg.ssm_state
+    return (torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
+                        device=device),
+            torch.zeros((batch, heads, hd, cfg.ssm_state), dtype=F32,
+                        device=device))
+
+
+def mamba2_decode(p, cfg: ArchConfig, x: torch.Tensor, state):
+    """x (B, 1, D); state from :func:`init_mamba2_state`; O(1) a token."""
+    return mamba2_forward(p, cfg, x, conv_state=state[0],
+                          ssm_state=state[1])
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): data-dependent decay
+# ---------------------------------------------------------------------------
+
+_RWKV_HD = 64
+
+
+def init_rwkv6(cfg: ArchConfig, gen: torch.Generator,
+               dtype: torch.dtype) -> nn.ParameterDict:
+    d = cfg.d_model
+    heads = d // _RWKV_HD
+    lora = 64
+    dev = gen.device
+    z = lambda: torch.zeros(d, dtype=dtype, device=dev)
+    return param_dict({
+        # token-shift mixing coefficients per stream
+        "mu_r": z(), "mu_k": z(), "mu_v": z(), "mu_w": z(), "mu_g": z(),
+        "wr": dense_init(gen, (d, d), dtype),
+        "wk": dense_init(gen, (d, d), dtype),
+        "wv": dense_init(gen, (d, d), dtype),
+        "wg": dense_init(gen, (d, d), dtype),
+        # data-dependent decay LoRA: w_t = exp(-exp(w0 + tanh(x A) B))
+        "w0": torch.full((d,), -5.0, dtype=F32, device=dev),
+        "w_a": dense_init(gen, (d, lora), dtype),
+        "w_b": dense_init(gen, (lora, d), dtype, scale=0.02),
+        "u": torch.zeros((heads, _RWKV_HD), dtype=F32, device=dev),
+        "ln_scale": torch.ones(d, dtype=F32, device=dev),
+        "wo": dense_init(gen, (d, d), dtype)})
+
+
+def _shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
+    """Each token's predecessor: ``x_prev`` (B, D) before the first."""
+    return torch.cat([x_prev[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _rwkv_streams(p, x: torch.Tensor, x_prev: torch.Tensor):
+    """Token shift: mix the current and previous token per channel into the
+    r, k, v, g streams and the decay w (float32); also the last token."""
+    shifted = _shift(x, x_prev)
+
+    def mix(mu):
+        return x + (shifted - x) * mu
+
+    r = mix(p["mu_r"]) @ p["wr"]
+    k = mix(p["mu_k"]) @ p["wk"]
+    v = mix(p["mu_v"]) @ p["wv"]
+    g = mix(p["mu_g"]) @ p["wg"]
+    wx = mix(p["mu_w"])
+    w = torch.exp(-torch.exp(p["w0"] +
+                             (torch.tanh(wx @ p["w_a"]) @ p["w_b"]).float()))
+    return r, k, v, g, w, x[:, -1].clone()
+
+
+def rwkv6_forward(p, cfg: ArchConfig, x: torch.Tensor, state=None):
+    """x (B, S, D) -> (y (B, S, D), (x_last (B, D), wkv (B, H, hd, hd)
+    float32)); ``state`` is the carried (x_prev, wkv)."""
+    b, s, d = x.shape
+    heads, hd = d // _RWKV_HD, _RWKV_HD
+    if state is None:
+        x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+        wkv = torch.zeros((b, heads, hd, hd), dtype=F32, device=x.device)
+    else:
+        x_prev, wkv = state
+    r, k, v, g, w, x_last = _rwkv_streams(p, x, x_prev)
+    rh = r.reshape(b, s, heads, hd).float()
+    kh = k.reshape(b, s, heads, hd).float()
+    vh = v.reshape(b, s, heads, hd).float()
+    wh = w.reshape(b, s, heads, hd)
+    u = p["u"][None, :, :, None]
+    ys = []
+    for i in range(s):
+        kv = kh[:, i, :, :, None] * vh[:, i, :, None, :]    # (B,H,hd,hd)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rh[:, i], wkv + u * kv))
+        wkv = wh[:, i, :, :, None] * wkv + kv
+    y = torch.stack(ys, dim=1)                               # (B,S,H,hd)
+    # group norm per head (population variance, as jnp.var), then the gate
+    mean = y.mean(-1, keepdim=True)
+    var = y.var(-1, keepdim=True, correction=0)
+    y = ((y - mean) * torch.rsqrt(var + 1e-5)).reshape(b, s, d) * \
+        p["ln_scale"]
+    y = (y * F.silu(g.float())).to(x.dtype)
+    return y @ p["wo"], (x_last, wkv)
+
+
+def init_rwkv_ffn(cfg: ArchConfig, gen: torch.Generator,
+                  dtype: torch.dtype) -> nn.ParameterDict:
+    """The channel mix; its names (fk/fv/fr) differ from the time mix's, as
+    in the reference."""
+    d, f = cfg.d_model, cfg.d_ff
+    z = lambda: torch.zeros(d, dtype=dtype, device=gen.device)
+    return param_dict({"mu_k": z(), "mu_r": z(),
+                    "fk": dense_init(gen, (d, f), dtype),
+                    "fv": dense_init(gen, (f, d), dtype),
+                    "fr": dense_init(gen, (d, d), dtype)})
+
+
+def rwkv_ffn_forward(p, cfg: ArchConfig, x: torch.Tensor,
+                     x_prev: torch.Tensor | None = None):
+    """RWKV channel mix: a squared-ReLU FFN with token shift -> (y, the
+    last token)."""
+    b, _, d = x.shape
+    if x_prev is None:
+        x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    shifted = _shift(x, x_prev)
+    xk = x + (shifted - x) * p["mu_k"]
+    xr = x + (shifted - x) * p["mu_r"]
+    k = torch.square(torch.relu(xk @ p["fk"]))
+    return torch.sigmoid(xr @ p["fr"]) * (k @ p["fv"]), x[:, -1].clone()
+
+
+def init_rwkv6_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
+                     device: torch.device | str):
+    """(x_prev (B, D) in ``dtype``, wkv (B, H, hd, hd) float32)."""
+    d = cfg.d_model
+    return (torch.zeros((batch, d), dtype=dtype, device=device),
+            torch.zeros((batch, d // _RWKV_HD, _RWKV_HD, _RWKV_HD),
+                        dtype=F32, device=device))
+
+
+def rwkv6_decode(p, cfg: ArchConfig, x: torch.Tensor, state):
+    """x (B, 1, D); state from :func:`init_rwkv6_state`; O(1) a token."""
+    return rwkv6_forward(p, cfg, x, state)

@@ -1,17 +1,21 @@
-"""The dense-GQA language model of ``repro.models.transformer`` as an
-``nn.Module``.
+"""The language models of ``repro.models.transformer`` as an ``nn.Module``:
+all ten assigned architectures.
 
 The reference stacks each segment's layers on a leading axis and runs them
-under ``jax.lax.scan``; here the layers are an ``nn.ModuleList`` walked by a
-Python loop.  Ported: the families whose layers are all the dense block
-(``dense``, ``audio``, ``vlm``: one ``("dense", L)`` segment), tied
-embeddings, the sqrt(d) embedding scale and the ``vision_patches`` prefix
-stub.  ``moe``, ``hybrid``, ``ssm`` and MLA raise ``NotImplementedError``
-(ROADMAP A11), as do training (``loss``, remat) and the sharding hook.
+under ``jax.lax.scan``; here the layers are one ``nn.ModuleList`` in order,
+walked by a Python loop, with the segment boundaries kept only where the
+hybrid's shared block goes.  Block kinds: ``dense`` (MLA or GQA attention
+and the gated MLP), ``moe`` (the same attention and ``models/moe.py``),
+``mamba2`` and ``rwkv6`` (``models/ssm.py``).  A hybrid (zamba2) applies
+its one ``shared`` dense block between segments, not after the last, with
+a KV cache of its own per application.  Tied embeddings, the sqrt(d)
+embedding scale and the ``vision_patches`` prefix stub are ported;
+training (``loss``, remat) and the sharding hook are not yet.
 
 Model API:
   Model(cfg, device=None, dtype=torch.bfloat16, generator=None, ...)
   forward(tokens, extra=None)          -> logits (B, S, padded vocab)
+  forward_aux(tokens, extra=None)      -> (logits, {"lb_loss", "drop_frac"})
   init_cache(batch, max_len)           -> cache
   prefill(tokens, cache, extra=None)   -> (last-token logits, cache)
   decode(token, cache, pos)            -> (logits, cache)
@@ -25,18 +29,33 @@ from torch import nn
 
 from repro_torch.core.table import resolve_device
 from . import attention as A
+from . import ssm as S
 from .common import ArchConfig, dense_init, glu_act, rms_norm
+from .moe import init_moe, moe_forward
 
-DENSE_FAMILIES = ("dense", "audio", "vlm")
+F32 = torch.float32
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for a family or attention variant the port does not have yet."""
-    if cfg.family not in DENSE_FAMILIES or cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}"
-            f"{' with MLA' if cfg.use_mla else ''} is not ported yet; the "
-            f"port runs the dense-GQA families {DENSE_FAMILIES} (ROADMAP A11)")
+def segments(cfg: ArchConfig) -> list[tuple[str, int]]:
+    """The config's runs of one block kind, (kind, layers), in order."""
+    if cfg.family in ("dense", "audio", "vlm"):
+        return [("dense", cfg.n_layers)]
+    if cfg.family == "moe":
+        segs = []
+        if cfg.first_dense_layers:
+            segs.append(("dense", cfg.first_dense_layers))
+        segs.append(("moe", cfg.n_layers - cfg.first_dense_layers))
+        return segs
+    if cfg.family == "hybrid":
+        k = cfg.shared_attn_every
+        segs, left = [], cfg.n_layers
+        while left > 0:
+            segs.append(("mamba2", min(k, left)))
+            left -= k
+        return segs
+    if cfg.family == "ssm":
+        return [("rwkv6", cfg.n_layers)]
+    raise ValueError(cfg.family)
 
 
 def _param(w: torch.Tensor) -> nn.Parameter:
@@ -63,52 +82,167 @@ class GLU(nn.Module):
         return glu_act(x @ self.w_gate, x @ self.w_up, self.act) @ self.w_down
 
 
-class DenseBlock(nn.Module):
-    """Pre-norm block: GQA attention, then the gated MLP, each added to the
-    residual stream."""
+class _Block(nn.Module):
+    """A pre-norm block.  ``forward`` -> (x, (lb_loss, drop_frac) or None);
+    ``step`` runs one layer of prefill or decode against its cache."""
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator,
-                 dtype: torch.dtype):
+    def __init__(self, cfg: ArchConfig):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = _zeros(cfg.d_model, dtype, gen.device)
-        self.attn = A.init_gqa(cfg, gen, dtype)
-        self.ln2 = _zeros(cfg.d_model, dtype, gen.device)
-        self.mlp = GLU(cfg, gen, dtype)
 
     def _norm(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, scale, self.cfg.norm_eps, self.cfg.norms_f32)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                n_prefix: int, use_flash_kernel: bool) -> torch.Tensor:
-        x = x + A.gqa_forward(self.attn, self.cfg, self._norm(x, self.ln1),
-                              positions, n_prefix, use_flash_kernel)
-        return x + self.mlp(self._norm(x, self.ln2))
 
-    def step(self, x: torch.Tensor, cache: dict, pos: int,
-             positions: torch.Tensor | None, n_prefix: int, decode: bool):
-        """One layer of prefill or decode against its cache."""
-        y = self._norm(x, self.ln1)
-        if decode:
-            h, cache = A.gqa_decode(self.attn, self.cfg, y, cache, pos)
+class AttnBlock(_Block):
+    """Kinds ``dense`` and ``moe``: MLA or GQA attention, then the gated MLP
+    (dense) or the experts (moe), each added to the residual stream."""
+
+    def __init__(self, kind: str, cfg: ArchConfig, gen: torch.Generator,
+                 dtype: torch.dtype, padded_experts: int):
+        super().__init__(cfg)
+        self.kind = kind
+        self.ln1 = _zeros(cfg.d_model, dtype, gen.device)
+        self.attn = (A.init_mla if cfg.use_mla else A.init_gqa)(cfg, gen,
+                                                                dtype)
+        self.ln2 = _zeros(cfg.d_model, dtype, gen.device)
+        if kind == "dense":
+            self.mlp = GLU(cfg, gen, dtype)
         else:
-            h, cache = A.gqa_prefill(self.attn, self.cfg, y, positions, cache,
-                                     n_prefix)
-        x = x + h
-        return x + self.mlp(self._norm(x, self.ln2)), cache
+            self.moe = init_moe(cfg, gen, dtype, padded_experts)
+
+    def attend(self, x: torch.Tensor, positions: torch.Tensor,
+               n_prefix: int, use_flash_kernel: bool) -> torch.Tensor:
+        """The residual stream after the attention."""
+        attn = A.mla_forward if self.cfg.use_mla else A.gqa_forward
+        return x + attn(self.attn, self.cfg, self._norm(x, self.ln1),
+                        positions, n_prefix, use_flash_kernel)
+
+    def _ffn(self, x: torch.Tensor, capacity_factor: float):
+        y = self._norm(x, self.ln2)
+        if self.kind == "dense":
+            return x + self.mlp(y), None
+        out, aux = moe_forward(self.moe, self.cfg, y,
+                               self.moe["router"].shape[1], capacity_factor)
+        return x + out, (aux["lb_loss"], aux["drop_frac"])
+
+    def forward(self, x, positions, n_prefix, use_flash_kernel,
+                capacity_factor):
+        return self._ffn(self.attend(x, positions, n_prefix,
+                                     use_flash_kernel), capacity_factor)
+
+    def step(self, x, cache, pos, positions, n_prefix, decode,
+             capacity_factor):
+        y = self._norm(x, self.ln1)
+        if self.cfg.use_mla:
+            h, cache = (A.mla_decode(self.attn, self.cfg, y, cache, pos)
+                        if decode else
+                        A.mla_prefill(self.attn, self.cfg, y, positions,
+                                      cache, n_prefix))
+        else:
+            h, cache = (A.gqa_decode(self.attn, self.cfg, y, cache, pos)
+                        if decode else
+                        A.gqa_prefill(self.attn, self.cfg, y, positions,
+                                      cache, n_prefix))
+        return self._ffn(x + h, capacity_factor)[0], cache
+
+    def init_cache(self, batch, max_len, dtype, device):
+        init = A.init_mla_cache if self.cfg.use_mla else A.init_kv_cache
+        return init(self.cfg, batch, max_len, dtype, device)
+
+
+class Mamba2Block(_Block):
+    """Kind ``mamba2``: the Mamba2 mixer, added to the residual stream."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator,
+                 dtype: torch.dtype):
+        super().__init__(cfg)
+        self.ln = _zeros(cfg.d_model, dtype, gen.device)
+        self.mixer = S.init_mamba2(cfg, gen, dtype)
+
+    def forward(self, x, positions, n_prefix, use_flash_kernel,
+                capacity_factor):
+        y, _ = S.mamba2_forward(self.mixer, self.cfg, self._norm(x, self.ln))
+        return x + y, None
+
+    def step(self, x, cache, pos, positions, n_prefix, decode,
+             capacity_factor):
+        y = self._norm(x, self.ln)
+        y, state = (S.mamba2_decode(self.mixer, self.cfg, y, cache) if decode
+                    else S.mamba2_forward(self.mixer, self.cfg, y,
+                                          conv_state=cache[0],
+                                          ssm_state=cache[1]))
+        return x + y, state
+
+    def init_cache(self, batch, max_len, dtype, device):
+        return S.init_mamba2_state(self.cfg, batch, dtype, device)
+
+
+class RWKV6Block(_Block):
+    """Kind ``rwkv6``: the time mix, then the channel mix, each added to
+    the residual stream."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator,
+                 dtype: torch.dtype):
+        super().__init__(cfg)
+        self.ln1 = _zeros(cfg.d_model, dtype, gen.device)
+        self.tm = S.init_rwkv6(cfg, gen, dtype)
+        self.ln2 = _zeros(cfg.d_model, dtype, gen.device)
+        self.ffn = S.init_rwkv_ffn(cfg, gen, dtype)
+
+    def step(self, x, cache, pos, positions, n_prefix, decode,
+             capacity_factor):
+        """``cache`` is (the time mix's (x_prev, wkv), the channel mix's
+        x_prev); ``None`` starts from zeros."""
+        tm_state, ffn_prev = cache if cache is not None else (None, None)
+        y = self._norm(x, self.ln1)
+        y, tm_state = (S.rwkv6_decode(self.tm, self.cfg, y, tm_state)
+                       if decode else
+                       S.rwkv6_forward(self.tm, self.cfg, y, state=tm_state))
+        x = x + y
+        y, ffn_prev = S.rwkv_ffn_forward(self.ffn, self.cfg,
+                                         self._norm(x, self.ln2),
+                                         x_prev=ffn_prev)
+        return x + y, (tm_state, ffn_prev)
+
+    def forward(self, x, positions, n_prefix, use_flash_kernel,
+                capacity_factor):
+        return self.step(x, None, 0, positions, n_prefix, False,
+                         capacity_factor)[0], None
+
+    def init_cache(self, batch, max_len, dtype, device):
+        return (S.init_rwkv6_state(self.cfg, batch, dtype, device),
+                torch.zeros((batch, self.cfg.d_model), dtype=dtype,
+                            device=device))
+
+
+def _block(kind: str, cfg: ArchConfig, gen: torch.Generator,
+           dtype: torch.dtype, padded_experts: int) -> _Block:
+    if kind in ("dense", "moe"):
+        return AttnBlock(kind, cfg, gen, dtype, padded_experts)
+    if kind == "mamba2":
+        return Mamba2Block(cfg, gen, dtype)
+    if kind == "rwkv6":
+        return RWKV6Block(cfg, gen, dtype)
+    raise ValueError(kind)
 
 
 class Model(nn.Module):
-    """A dense-GQA language model with random weights from ``generator``
-    (seed 0 on the model's device when None).  ``device`` is ``cuda`` unless
-    the caller names another; without CUDA that raises."""
+    """A language model of any of the ten families with random weights from
+    ``generator`` (seed 0 on the model's device when None).  ``device`` is
+    ``cuda`` unless the caller names another; without CUDA that raises.
+    ``expert_pad`` pads the expert count to a multiple (the padding
+    experts are masked out of the routing) and ``capacity_factor`` sizes
+    the experts' capacity, as the reference's arguments of those names.
+    Parameters the reference creates in float32 (the SSMs' decays and
+    skips) stay float32 in a bf16 model."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  dtype: torch.dtype = torch.bfloat16,
                  generator: torch.Generator | None = None,
-                 vocab_pad: int = 1, use_flash_kernel: bool = False):
+                 vocab_pad: int = 1, use_flash_kernel: bool = False,
+                 expert_pad: int = 16, capacity_factor: float = 1.25):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -116,15 +250,24 @@ class Model(nn.Module):
             raise ValueError(f"generator on {generator.device}, model on {dev}")
         self.cfg = cfg
         self.vocab_pad = vocab_pad
+        self.expert_pad = expert_pad
         self.use_flash_kernel = use_flash_kernel
+        self.capacity_factor = capacity_factor
         gen = generator
         self.embed = _param(dense_init(gen, (self.padded_vocab, cfg.d_model),
                                        dtype, scale=0.02))
         self.final_norm = _zeros(cfg.d_model, dtype, dev)
         self.lm_head = None if cfg.tie_embeddings else _param(
             dense_init(gen, (cfg.d_model, self.padded_vocab), dtype))
-        self.layers = nn.ModuleList(DenseBlock(cfg, gen, dtype)
-                                    for _ in range(cfg.n_layers))
+        segs = segments(cfg)
+        self.layers = nn.ModuleList(
+            _block(kind, cfg, gen, dtype, self.padded_experts)
+            for kind, count in segs for _ in range(count))
+        # the shared block follows each segment but the last
+        ends = [sum(c for _, c in segs[:i + 1]) - 1 for i in range(len(segs))]
+        self.shared_after = tuple(ends[:-1]) if cfg.shared_attn_every else ()
+        self.shared = _block("dense", cfg, gen, dtype, 0) \
+            if cfg.shared_attn_every else None
 
     # -- helpers -------------------------------------------------------------
     @property
@@ -134,6 +277,11 @@ class Model(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.embed.dtype
+
+    @property
+    def padded_experts(self) -> int:
+        e, m = self.cfg.n_experts, self.expert_pad
+        return (e + m - 1) // m * m if e else 0
 
     @property
     def padded_vocab(self) -> int:
@@ -176,27 +324,55 @@ class Model(nn.Module):
     def forward(self, tokens: torch.Tensor, extra: dict | None = None
                 ) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S + prefix, padded vocab)."""
+        return self.forward_aux(tokens, extra)[0]
+
+    def forward_aux(self, tokens: torch.Tensor, extra: dict | None = None):
+        """-> (logits, {"lb_loss", "drop_frac"}): the MoE layers' load
+        balancing loss and drop fraction summed over the layers (float32
+        zeros where there are none)."""
         x, n_prefix = self._embed(tokens, extra)
         b, s, _ = x.shape
         positions = self._positions(b, s, x.device)
-        for layer in self.layers:
-            x = layer(x, positions, n_prefix, self.use_flash_kernel)
-        return self._head(x)
+        lb = torch.zeros((), dtype=F32, device=x.device)
+        drop = torch.zeros((), dtype=F32, device=x.device)
+        args = (positions, n_prefix, self.use_flash_kernel,
+                self.capacity_factor)
+        for i, layer in enumerate(self.layers):
+            x, aux = layer(x, *args)
+            if aux is not None:
+                lb, drop = lb + aux[0], drop + aux[1]
+            if i in self.shared_after:
+                x, _ = self.shared(x, *args)
+        return self._head(x), {"lb_loss": lb, "drop_frac": drop}
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
-                   dtype: torch.dtype | None = None) -> list[dict]:
-        return [A.init_kv_cache(self.cfg, batch, max_len, dtype or self.dtype,
-                                self.device) for _ in self.layers]
+                   dtype: torch.dtype | None = None) -> dict[str, list]:
+        """{"layers": one cache a layer, "shared": one a shared-block
+        application}; ``dtype`` (the model's by default) is that of the KV
+        caches and token shifts, the SSM states are float32."""
+        dt, dev = dtype or self.dtype, self.device
+        return {"layers": [layer.init_cache(batch, max_len, dt, dev)
+                           for layer in self.layers],
+                "shared": [self.shared.init_cache(batch, max_len, dt, dev)
+                           for _ in self.shared_after]}
 
     def _with_cache(self, x, cache, pos, positions, n_prefix, decode):
-        new_cache = []
-        for layer, layer_cache in zip(self.layers, cache):
-            x, c = layer.step(x, layer_cache, pos, positions, n_prefix, decode)
-            new_cache.append(c)
-        return x, new_cache
+        new = {"layers": [], "shared": []}
+        shared = iter(cache["shared"])
+        for i, (layer, layer_cache) in enumerate(zip(self.layers,
+                                                     cache["layers"])):
+            x, c = layer.step(x, layer_cache, pos, positions, n_prefix,
+                              decode, self.capacity_factor)
+            new["layers"].append(c)
+            if i in self.shared_after:
+                x, c = self.shared.step(x, next(shared), pos, positions,
+                                        n_prefix, decode,
+                                        self.capacity_factor)
+                new["shared"].append(c)
+        return x, new
 
-    def prefill(self, tokens: torch.Tensor, cache: list[dict],
+    def prefill(self, tokens: torch.Tensor, cache: dict,
                 extra: dict | None = None):
         """Run the prompt, fill the cache -> (logits (B, 1, V), cache)."""
         x, n_prefix = self._embed(tokens, extra)
@@ -205,7 +381,7 @@ class Model(nn.Module):
                                     n_prefix, decode=False)
         return self._head(x[:, -1:]), cache
 
-    def decode(self, token: torch.Tensor, cache: list[dict], pos: int):
+    def decode(self, token: torch.Tensor, cache: dict, pos: int):
         """token (B, 1) at position ``pos`` -> (logits (B, 1, V), cache)."""
         x = self._embed_tokens(token)
         x, cache = self._with_cache(x, cache, pos, None, 0, decode=True)

@@ -145,13 +145,13 @@ def test_serve_lm():
     args = ["--batch", "2", "--prompt-len", "8", "--tokens", "4",
             "--device", "cpu"]
     out = mod.main(args)
-    assert out["arch"] == "mistral-nemo-12b"
+    assert out["arch"] == "rwkv6-3b"
     assert out["tokens"].shape == (2, 4)
     # the first token is the greedy pick after the prompt: forward's argmax
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    model = Model(get_config("mistral_nemo_12b").reduced(), device="cpu",
-                  dtype=torch.float32,
+    model = Model(get_config("rwkv6_3b").reduced(), device="cpu",
+                  dtype=torch.float32, expert_pad=1,
                   generator=torch.Generator().manual_seed(0))
     with torch.inference_mode():
         logits = model(torch.from_numpy(out["prompts"]))

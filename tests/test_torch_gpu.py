@@ -618,14 +618,15 @@ def _flash_case(q, k, v, causal):
 
 
 @pytest.mark.parametrize("sq,skv", [(1000, 1000), (4097, 4097), (300, 1000)])
-@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("group", [1, 3, 4, 8])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
 def test_flash_attention_wgmma_vs_plain(cuda, monkeypatch, d, causal, group,
                                         sq, skv):
     """The tensor-core design at each head size it takes, both masks, GQA
-    groups 1/4/8, sequences that end inside a tile and Sq < Skv: within
-    one bf16 output rounding of the plain version element by element."""
+    groups 1/3/4/8 (3 is Granite-MoE's 24/8), sequences that end inside a
+    tile and Sq < Skv: within one bf16 output rounding of the plain version
+    element by element."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     assert fa.design(torch.bfloat16, d) == "wgmma"
     g = torch.Generator(device=cuda).manual_seed(d + group + sq)
@@ -799,6 +800,86 @@ def test_model_forward_on_card_with_and_without_kernel(cuda, monkeypatch):
     gen = serve_lm.generate(model, tokens[:, :32], 8, 0.8,
                             torch.Generator(device=cuda).manual_seed(1))
     assert gen.tokens.shape == (2, 8) and gen.tokens.device.type == "cuda"
+
+
+_MOE_CASES = [("granite_moe_3b_a800m", False), ("granite_moe_3b_a800m", True),
+              ("deepseek_v2_236b", False), ("deepseek_v2_236b", True)]
+
+
+@pytest.mark.parametrize("arch,full_experts", _MOE_CASES)
+def test_moe_forward_on_card_equals_the_cpu(cuda, monkeypatch, arch,
+                                            full_experts):
+    """One MoE layer at the reduced widths in float32 (with the published
+    expert count and top-k where ``full_experts``: 48 padded experts or
+    160, so the rank's three-pass design): the card's slots equal
+    ``counting_rank_ref``'s, its output and aux the CPU port's to 1e-4
+    under the CPU's routing."""
+    from repro_torch.models import moe
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    full = get_config(arch)
+    cfg = full.reduced()
+    if full_experts:
+        cfg = dataclasses.replace(cfg, n_experts=full.n_experts,
+                                  top_k=full.top_k)
+    model = Model(cfg, device="cpu", dtype=torch.float32)
+    p_cpu = model.layers[-1].moe
+    p_card = {k: v.to(cuda) for k, v in p_cpu.items()}
+    e = model.padded_experts
+    x = torch.randn((4, 256, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    t = x.shape[0] * x.shape[1]
+    with torch.inference_mode():
+        _, top_w, top_e = moe.route(p_cpu, cfg, x.reshape(t, -1), e)
+        cap = moe.capacity(t, cfg, e, 1.25)
+        want, want_slot, want_counts = moe.dispatch(
+            p_cpu, cfg, x.reshape(t, -1), top_w, top_e, e, cap)
+        K.reset_launches()
+        got, slot, counts = moe.dispatch(
+            p_card, cfg, x.reshape(t, -1).to(cuda), top_w.to(cuda),
+            top_e.to(cuda), e, cap)
+        torch.cuda.synchronize()
+        assert K.launches["counting_rank"] == 1
+        assert K.launches["counting_rank_onepass"] == int(e + 2 <= 32)
+        ref_slot, ref_counts = rh_ref.counting_rank_ref(
+            top_e.reshape(-1).to(cuda, torch.int32), e + 1)
+        assert torch.equal(slot, ref_slot) and torch.equal(slot.cpu(),
+                                                           want_slot)
+        assert torch.equal(counts, ref_counts[:e])
+        assert torch.equal(counts.cpu(), want_counts)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        out, aux = moe.moe_forward(p_card, cfg, x.to(cuda), e)
+        want_out, want_aux = moe.moe_forward(p_cpu, cfg, x, e)
+        assert torch.equal(aux["expert_load"].cpu(), want_aux["expert_load"])
+        torch.testing.assert_close(out.cpu(), want_out, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "granite_moe_3b_a800m",
+                                  "zamba2_1_2b", "rwkv6_3b"])
+def test_model_families_on_card_equal_the_cpu(cuda, monkeypatch, arch):
+    """The reduced config in float32: forward logits (through the flash
+    kernel where the config has GQA attention) equal the CPU's to 1e-4,
+    and prefill with three greedy decode steps give the CPU's ids."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config(arch).reduced()
+    model = Model(cfg, dtype=torch.float32, use_flash_kernel=True)
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        torch.testing.assert_close(model(tokens).cpu(), cpu(tokens),
+                                   atol=1e-4, rtol=1e-4)
+        ids = []
+        for m in (model, cpu):
+            logits, cache = m.prefill(tokens, m.init_cache(2, 64 + 4))
+            tok = logits[:, -1:].argmax(-1)
+            out = [tok]
+            for i in range(3):
+                logits, cache = m.decode(tok, cache, 64 + i)
+                tok = logits.argmax(-1)
+                out.append(tok)
+            ids.append(torch.cat(out, dim=1).cpu())
+    assert torch.equal(ids[0], ids[1])
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Import hygiene of the port: ``repro_torch`` (its serving and
-approximate layers and the SF 1000 dry-run included), ``chip_smoke.py``,
-the port's examples (``examples/torch_*.py``) and its timing tools
-(``tools/time_*.py``) never import ``jax`` or anything of the reference
-package ``repro``; every example resolves its device through
-``core/table.py::resolve_device``, ``cuda`` unless asked for another."""
+approximate layers, the SF 1000 dry-run and every model family
+included), ``chip_smoke.py``, the port's examples
+(``examples/torch_*.py``) and its timing tools (``tools/time_*.py``) never
+import ``jax`` or anything of the reference package ``repro``; every
+example resolves its device through ``core/table.py::resolve_device``,
+``cuda`` unless asked for another."""
 import os
 import re
 import subprocess
@@ -78,6 +79,15 @@ model = Model(cfg, device="cpu", dtype=torch.float32, use_flash_kernel=True)
 gen = serve_lm.generate(model, torch.zeros((1, 4), dtype=torch.int64), 3,
                         1.0, torch.Generator().manual_seed(0))
 assert gen.tokens.shape == (1, 3)
+# the MoE (MLA, GQA), Mamba2-hybrid and RWKV6 families (models/moe.py,
+# models/ssm.py): prefill and decode through the counting-rank dispatch
+for arch in ("deepseek_v2_236b", "granite_moe_3b_a800m", "zamba2_1_2b",
+             "rwkv6_3b"):
+    model = Model(configs.get_config(arch).reduced(), device="cpu",
+                  dtype=torch.float32)
+    gen = serve_lm.generate(model, torch.zeros((1, 4), dtype=torch.int64),
+                            2, 1.0, torch.Generator().manual_seed(0))
+    assert gen.tokens.shape == (1, 2), arch
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
             and sys.modules[m] is not None]
 print("ok")
