@@ -99,7 +99,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      sizes: the recovery and ladder benches at SF 10 (the 1/16 rungs and
      their stratum ranks phase 7c's; each lineage resume byte-identical to
      the full run), then, with SF 10 off the card, the rest in ``run``'s
-     order at SF 1 and the reference's sizes, the gated ones with
+     order at SF 1 (the skew sweep at SF 0.1) and the reference's sizes,
+     the gated ones with
      ``--check`` (any failed gate or error fails the run; the sort tax
      against SF 1's own budgets): their CSV and report lines and each
      bench's seconds, reports under ``results/torch``;
@@ -171,6 +172,24 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      agreement >= 0.99); Granite's prefill against forward and the SSMs'
      prefill-then-decode against forward (relative L2 <= 1e-4, argmax
      equal).
+  13. (after 12) training (``repro_torch.train``, ``Model.loss``,
+     ``launch/train.py``): (a) float32 gradients on the card against the
+     CPU, one CPU model's state dict loaded into the card's, for all ten
+     configs reduced and Granite-MoE-3B at its published width and depth 2
+     (the first MoE layer's routing equal first; the loss and the
+     gradients' global norm within relative 1e-5, every gradient leaf
+     within relative L2 1e-4); (b) remat "full" against "none" on the
+     wide Granite (the loss and the whole gradient within relative L2
+     1e-6, the worst leaf printed; the counting
+     rank twice a MoE layer against once); (c) Granite-MoE-3B-A800M in
+     full, bf16, remat "full", the trainer's model and AdamW settings, 6
+     steps of B 4 x S 1024 on the training example's zipf batches (the
+     median of steps 2-6, tokens/s, AdamW's share by CUDA events, peak
+     device memory, 64 counting-rank launches a step, the idle share and
+     device time by kernel of one more, profiled step; every loss and norm
+     finite, the parameters changed); (d) ``launch/train.py --smoke`` twice
+     into one directory (the second restores step 6 and goes on from 7)
+     and ``examples/torch_train_lm.py --steps 20``.
 
 It prints the card line and a ``{"kernels": [...]}`` line before the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -225,7 +244,9 @@ FLASH_BF16_ATOL = 2e-5
 LM_F32_REL_L2 = 1e-4
 # phase 10: each bench's arguments: SF 1 at the main path's seed; the NumPy
 # baseline at SF 0.1, where its 3 x 22 reference runs take seconds on the
-# host, not minutes; the IR-only wire bytes and the exchange sweeps at the
+# host, not minutes; the skew sweep at SF 0.1 (the reference's runs it at
+# sf 0.005; at SF 1 its JCC-H generation and 8-rank host work took 26.7 s
+# of a run that crossed 720 s); the IR-only wire bytes and the exchange sweeps at the
 # reference's sizes; the kernels at SF 1's lineitem rows and the LM path's
 # attention shape; the sort tax at SF 1 against SF 1's own budgets; the
 # recovery and sample-ladder benches at SF 10,
@@ -240,7 +261,7 @@ BENCH_ARGS = {
     "bench_baseline": ["--sf", "0.1", "--seed", str(SEED)],
     "bench_kernels": ["--rows", "6000000",
                       "--flash", ",".join(map(str, FLASH_SHAPE))],
-    "bench_skew": _SF1,
+    "bench_skew": ["--sf", "0.1", "--seed", str(SEED)],
     "bench_q12_plans": _SF1,
     "bench_sort_tax": _SF1,
     "bench_recovery": ["--sf", str(SF_TIMED), "--seed", str(SEED)],
@@ -259,16 +280,18 @@ SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--tokens", "16"]
 # tokens; new - 1 decode steps follow the prefill's token), and the depth
 # of the float32 comparison at full width.  DeepSeek-V2 keeps its
 # first (dense) layer and 3 MoE layers of 60: 236 B parameters are ~472 GB
-# in bf16 against the card's 80 GB, the cut ~25 GB
+# in bf16 against the card's 80 GB, the cut ~25 GB.  The SSMs' forward (S
+# 64 -> 32) and prompt (512 -> 256) are halved to keep the run under 720 s:
+# their profiled forward alone took ~10 s of host time each at S 64
 FAMILY_RUNS = {
     "granite_moe_3b_a800m": dict(layers=None, forward=(2, 4096),
                                  generate=(4, 512, 32), f32_layers=4),
     "deepseek_v2_236b": dict(layers=4, forward=(1, 2048),
                              generate=(2, 512, 16), f32_layers=None),
-    "zamba2_1_2b": dict(layers=None, forward=(4, 64),
-                        generate=(4, 512, 33), f32_layers=8),
-    "rwkv6_3b": dict(layers=None, forward=(4, 64),
-                     generate=(4, 512, 33), f32_layers=4),
+    "zamba2_1_2b": dict(layers=None, forward=(4, 32),
+                        generate=(4, 256, 33), f32_layers=8),
+    "rwkv6_3b": dict(layers=None, forward=(4, 32),
+                     generate=(4, 256, 33), f32_layers=4),
 }
 # the float32 checks: prefill's last-token logits against forward's (the
 # MoE; B 1 x S 1024) and prefill of half the tokens then step-by-step
@@ -276,6 +299,30 @@ FAMILY_RUNS = {
 # layer against its plain version under the same routing
 FAMILY_F32_SEQ = {"moe": (1, 1024), "ssm": (2, 64)}
 FAMILY_F32_REL_L2 = 1e-4
+# phase 13: training.  (a) float32 gradients on the card against the CPU:
+# every config reduced (B x S), and Granite at its published width cut to
+# TRAIN_WIDE_LAYERS layers; the loss and the gradients' global norm at
+# relative TRAIN_F32_RTOL, every gradient leaf at relative L2
+# TRAIN_GRAD_REL_L2.  (b) remat "full" against "none" on the card, the
+# same wide Granite: the loss and the whole gradient at relative L2
+# TRAIN_REMAT_REL_L2.  The card's index_add_ adds in no fixed order, so two
+# runs without remat differ too (logged beside; full against none read
+# 8.99e-7 and 9.08e-7, a leaf alone 9.9e-7); a wrong recompute (other
+# routing, a layer left out) moves the gradient by orders more.  (c)
+# Granite-MoE-3B in
+# full, bf16, remat "full": TRAIN_FULL's steps of (batch, seq) under the
+# trainer's AdamW settings.  (d) the trainer's smoke run twice and the
+# example once
+TRAIN_ARCH = "granite_moe_3b_a800m"
+TRAIN_REDUCED_SEQ = (2, 64)
+TRAIN_WIDE_LAYERS = 2
+TRAIN_WIDE_SEQ = (2, 128)
+TRAIN_F32_RTOL = 1e-5
+TRAIN_GRAD_REL_L2 = 1e-4
+TRAIN_REMAT_REL_L2 = 1e-5
+TRAIN_FULL = dict(batch=4, seq=1024, steps=6)
+TRAIN_SMOKE_ARGS = ["--smoke", "--steps", "6", "--ckpt-every", "3"]
+TRAIN_EXAMPLE_ARGS = ["--steps", "20"]
 
 
 _T0 = time.perf_counter()
@@ -327,15 +374,18 @@ def device_time_by_kernel(fn) -> dict[str, float]:
             fn()
             torch.cuda.synchronize()
             time.sleep(hold)
+        # the trace's raw records: prof.events() would first build the
+        # host's operator tree, seconds for a train step's ~1e5 records
+        events = prof.profiler.kineto_results.events()
         by_name: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us() / 1e3
+        for k in events:
+            if k.device_type() == DeviceType.CUDA:
+                by_name[k.name()] = by_name.get(k.name(), 0.0) + \
+                    k.duration_ns() / 1e6
         if sum(by_name.values()) > 0:
             return by_name
         kinds: dict[str, int] = {}
-        for k in prof.profiler.kineto_results.events():
+        for k in events:
             kinds[str(k.device_type())] = kinds.get(str(k.device_type()),
                                                     0) + 1
         log(f"torch.profiler: trace {attempt + 1} (held {hold * 1e3:.0f} "
@@ -2339,6 +2389,302 @@ def run_families(dev, card) -> dict[str, dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+def loss_and_grads(model, tokens, extra=None):
+    """The train step's ``trainstep.loss_and_grads`` on (tokens, tokens),
+    the model's parameters turned to require grad -> (loss, aux, gradients
+    by name, their global norm in float32, the first MoE layer's ``top_e``
+    or None)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.train import trainstep
+    model.requires_grad_(True)
+    with FirstCall(moe, "route") as routed:
+        loss, aux, grads = trainstep.loss_and_grads(
+            model, {"tokens": tokens, "labels": tokens, **(extra or {})})
+    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+    top_e = routed.out[2] if routed.out is not None else None
+    return loss, aux, grads, gnorm, top_e
+
+
+def check_train_grads_f32(dev, cfg, shape, label: str) -> dict:
+    """13(a): one CPU model, its state dict loaded into the card's, the
+    same batch on both: the first MoE layer's routing equal, then the loss
+    and the gradients' global norm at relative ``TRAIN_F32_RTOL``, every
+    gradient leaf at relative L2 ``TRAIN_GRAD_REL_L2``.  Returns the
+    errors."""
+    import torch
+    from repro_torch.models import Model
+    g = torch.Generator().manual_seed(SEED)
+    cpu = Model(cfg, device="cpu", dtype=torch.float32, generator=g,
+                expert_pad=1)
+    card = Model(cfg, device=dev, dtype=torch.float32, expert_pad=1)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, shape, generator=g)
+    extra = None
+    if cfg.frontend == "vision_patches":
+        extra = {"patches": torch.randn((shape[0], cfg.n_prefix,
+                                         cfg.d_model), generator=g)}
+    want = loss_and_grads(cpu, tokens, extra)
+    got = loss_and_grads(card, tokens.to(dev), extra)
+    if want[4] is not None and not torch.equal(got[4].cpu(), want[4]):
+        raise AssertionError(f"{label}: the first MoE layer routes "
+                             f"otherwise on the card (a near-tie in top-k)")
+    loss_err = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+    norm_err = abs(got[3].item() - want[3].item()) / want[3].item()
+    worst, leaf = 0.0, ""
+    for name, gw in want[2].items():
+        err = rel_l2(got[2][name].cpu(), gw) if gw.norm() > 0 else \
+            got[2][name].abs().max().item()
+        if err > worst:
+            worst, leaf = err, name
+    log(f"13a {label} float32 B={shape[0]} S={shape[1]}: card vs CPU loss "
+        f"{got[0].item():.6f} ({loss_err:.2e}), grad norm "
+        f"{got[3].item():.6f} ({norm_err:.2e}), worst gradient leaf "
+        f"{leaf} relative L2 {worst:.3e}"
+        + ("; first MoE layer's routing equal" if want[4] is not None
+           else ""))
+    if not (loss_err <= TRAIN_F32_RTOL and norm_err <= TRAIN_F32_RTOL and
+            worst <= TRAIN_GRAD_REL_L2):
+        raise AssertionError(f"{label}: card gradients differ from the "
+                             f"CPU's: loss {loss_err}, norm {norm_err}, "
+                             f"{leaf} {worst}")
+    return {"loss": loss_err, "grad_norm": norm_err, "worst_leaf": worst}
+
+
+def check_remat(dev, cfg, shape, label: str) -> None:
+    """13(b): remat "full" against "none" on the card in float32: the loss
+    and the whole gradient at relative L2 ``TRAIN_REMAT_REL_L2``; the
+    counting rank runs twice a MoE layer (forward and recompute) against
+    once.  A second "none" run against the first reads the card's own
+    noise floor (its scatter-adds' order), logged beside."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import segments
+    model = Model(cfg, device=dev, dtype=torch.float32, expert_pad=1,
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    tokens = torch.randint(0, cfg.vocab, shape, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(SEED + 1))
+    out = []
+    for remat in ("none", "none", "full"):
+        model.remat = remat
+        K.reset_launches()
+        res = loss_and_grads(model, tokens)
+        torch.cuda.synchronize(dev)
+        out.append((res, K.launches["counting_rank"]))
+
+    def errors(a, b):
+        loss = abs(a[0].item() - b[0].item()) / abs(b[0].item())
+        diff = sum((a[2][k] - g).square().sum() for k, g in b[2].items())
+        worst, leaf = max((rel_l2(a[2][k], g), k) for k, g in b[2].items()
+                          if g.norm() > 0)
+        return loss, math.sqrt(diff.item() / b[3].item() ** 2), worst, leaf
+
+    (base, n0), (again, _), (rem, n1) = out
+    floor = errors(again, base)
+    loss_err, tree, worst, leaf = errors(rem, base)
+    n_moe = sum(c for kind, c in segments(cfg) if kind == "moe")
+    log(f"13b {label} float32 B={shape[0]} S={shape[1]}: remat full vs "
+        f"none: loss {loss_err:.2e}, gradients relative L2 {tree:.3e} (the "
+        f"worst leaf {leaf} {worst:.3e}); none vs none: loss "
+        f"{floor[0]:.2e}, gradients {floor[1]:.3e} (the worst leaf "
+        f"{floor[3]} {floor[2]:.3e}); counting-rank launches {n1} against "
+        f"{n0} ({n_moe} MoE layers)")
+    if not (loss_err <= TRAIN_REMAT_REL_L2 and tree <= TRAIN_REMAT_REL_L2
+            and (n0, n1) == (n_moe, 2 * n_moe)):
+        raise AssertionError(f"{label}: remat differs: loss {loss_err}, "
+                             f"gradients {tree}, rank launches {n0}, {n1}")
+    del model, out, base, again, rem
+    free_model(dev)
+
+
+class CudaTimed:
+    """While open, wraps ``module.name`` so that each call is bracketed by
+    CUDA events on the current stream; ``ms()`` sums their elapsed times
+    (read after a synchronise)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.events = module, name, []
+
+    def __enter__(self):
+        import torch
+        self.fn = fn = getattr(self.module, self.name)
+
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.fn)
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def run_train_full(dev, card: str) -> dict[str, int]:
+    """13(c): Granite-MoE-3B-A800M in full, bf16, remat "full", the
+    trainer's model (experts unpadded, vocabulary padded to 128) and AdamW
+    settings, TRAIN_FULL's steps on the example's zipf batches; step 1's
+    first router destinations through the counting rank against
+    ``counting_rank_ref``, exactly.  Returns the launch counts of the first
+    step."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.models import Model, moe
+    from repro_torch.train import optimizer, trainstep
+    cfg = family_config(TRAIN_ARCH, None)
+    b, s, steps = TRAIN_FULL["batch"], TRAIN_FULL["seq"], TRAIN_FULL["steps"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, dtype=torch.bfloat16, expert_pad=1,
+                  vocab_pad=128, remat="full",
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    ocfg = optimizer.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps)
+    step = trainstep.make_train_step(model, ocfg)
+    state = trainstep.init_train_state(model)
+    torch.cuda.synchronize(dev)
+    log(f"13c {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+        f"parameters in bf16, {model.padded_experts} experts, vocabulary "
+        f"{model.padded_vocab}, remat full; with AdamW's float32 m and v "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB, made in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    params = dict(model.named_parameters())
+    watch = [k for k in ("embed", "final_norm", "layers.0.ln1",
+                         "layers.0.attn.wq",
+                         f"layers.{cfg.n_layers - 1}.moe.w_down", "lm_head")
+             if k in params]
+    before = {k: params[k].detach().clone() for k in watch}
+    synthetic_batch = load_example("train_lm").synthetic_batch
+    rng = np.random.default_rng(SEED)
+    walls, opt_ms, losses, norms = [], [], [], []
+    counts = {}
+    for i in range(steps):
+        batch = synthetic_batch(rng, cfg.vocab, b, s, dev)
+        if i == 0:
+            K.reset_launches()
+        with CudaTimed(optimizer, "apply_update") as upd, \
+                FirstCall(moe, "route") as routed:
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            m = step(state, batch)
+            torch.cuda.synchronize(dev)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        opt_ms.append(upd.ms())
+        if i == 0:
+            counts = {k: v for k, v in K.launches.items() if v}
+            check_router_dest(routed, model.padded_experts,
+                              cfg.first_dense_layers,
+                              f"13c {cfg.name} train step 1", card)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        log(f"13c step {i + 1}: loss {losses[-1]:.4f}, grad norm "
+            f"{norms[-1]:.4f}, lr {m['lr'].item():.2e}, {walls[-1]:.1f} ms "
+            f"(AdamW {opt_ms[-1]:.1f} ms)")
+    med = statistics.median(walls[1:])
+    share = statistics.median(o / w for o, w in zip(opt_ms[1:], walls[1:]))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"13c {cfg.name} train step B={b} S={s}: median of steps 2-{steps} "
+        f"{med:.1f} ms ({b * s / med * 1e3:.0f} tokens/s; steps "
+        f"{', '.join(f'{w:.1f}' for w in walls)}); AdamW's share "
+        f"{share:.3f}; peak device memory {peak:.2f} GB; launches of step 1 "
+        f"{json.dumps(counts)} ({card})")
+    batch = synthetic_batch(rng, cfg.vocab, b, s, dev)
+    by_name = device_time_by_kernel(lambda: step(state, batch))
+    log(busy_line(f"13c train step B={b} S={s} (one more step, profiled)",
+                  sum(by_name.values()), med) + f" ({card})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("13c train step device time by kernel: " +
+        "; ".join(f"{name[:64]} {ms:.1f} ms" for name, ms in top))
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"13c: non-finite loss or norm: {losses}, "
+                             f"{norms}")
+    unchanged = [k for k in watch if torch.equal(params[k], before[k])]
+    if unchanged:
+        raise AssertionError(f"13c: parameters unchanged after {steps} "
+                             f"steps: {unchanged}")
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    want = {"counting_rank": 2 * n_moe, "counting_rank_onepass": 0,
+            "flash_attention": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"13c: a train step launched {got}, want "
+                             f"{want}")
+    del model, step, state, params, before, batch, m, routed
+    free_model(dev)
+    return counts
+
+
+def run_train_cli(dev, card: str) -> None:
+    """13(d): ``launch/train.py`` (smoke) twice into one directory, the
+    second restoring the first's last checkpoint and going on; then the
+    training example."""
+    import tempfile
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory() as tmp:
+        args = TRAIN_SMOKE_ARGS + ["--ckpt-dir", tmp]
+        first = train.main(args)
+        second = train.main(args)
+        example = load_example("train_lm").main(
+            TRAIN_EXAMPLE_ARGS + ["--ckpt-dir", f"{tmp}/example"])
+    n = len(first["steps"])
+    if not (first["start"] == 0 and second["start"] == n and
+            second["steps"][0] == n + 1 and
+            second["model"].device.type == dev.type):
+        raise AssertionError(f"13d: the trainer did not restore step {n} "
+                             f"and go on: {second['start']}, "
+                             f"{second['steps']}")
+    losses = list(example.values())
+    if not all(math.isfinite(x) for x in first["loss"] + second["loss"] +
+               losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"13d: losses {first['loss']}, "
+                             f"{second['loss']}, example {example}")
+    log(f"13d launch/train.py --smoke on {dev}: steps 1-{n} loss "
+        f"{first['loss'][0]:.4f} -> {first['loss'][-1]:.4f}; rerun restored "
+        f"step {second['start']}, steps {second['steps'][0]}-"
+        f"{second['steps'][-1]} loss {second['loss'][-1]:.4f}; "
+        f"examples/torch_train_lm.py {' '.join(TRAIN_EXAMPLE_ARGS)}: "
+        f"losses {json.dumps({k: round(v, 4) for k, v in example.items()})}"
+        f" ({card})")
+
+
+def run_training(dev, card: str) -> dict[str, int]:
+    """Phase 13.  Returns the launch counts of the full-size train step."""
+    import torch
+    from repro_torch import configs
+    torch.backends.cuda.matmul.allow_tf32 = False     # full float32 GEMMs
+    errs = {}
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch).reduced()
+        errs[arch] = check_train_grads_f32(dev, cfg, TRAIN_REDUCED_SEQ,
+                                           f"{cfg.name} (reduced)")
+    wide = family_config(TRAIN_ARCH, TRAIN_WIDE_LAYERS)
+    label = f"{wide.name} ({wide.n_layers} layers, published width)"
+    errs["wide"] = check_train_grads_f32(dev, wide, TRAIN_WIDE_SEQ, label)
+    free_model(dev)
+    log(f"13a worst: loss {max(e['loss'] for e in errs.values()):.2e}, "
+        f"grad norm {max(e['grad_norm'] for e in errs.values()):.2e}, "
+        f"gradient leaf {max(e['worst_leaf'] for e in errs.values()):.3e}")
+    check_remat(dev, wide, TRAIN_WIDE_SEQ, label)
+    counts = run_train_full(dev, card)
+    run_train_cli(dev, card)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2418,6 +2764,10 @@ def main() -> int:
     family_counts = run_families(dev, card)
     log(f"phase 12: {time.perf_counter() - t12:.1f} s; forward launches "
         f"{json.dumps(family_counts)}")
+    t13 = time.perf_counter()
+    train_counts = run_training(dev, card)
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s; launches of a "
+        f"full-size train step {json.dumps(train_counts)}")
     # each kernel's launches on the path that runs it: the local main path,
     # the distributed path (the counting rank), the skew statistics, the
     # 32-bit join probe, one forward of the LM path

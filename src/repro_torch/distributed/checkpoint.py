@@ -4,11 +4,13 @@ Layout:  <dir>/step_<N>/ manifest.json + <leaf-index>.npy
 A tree is nested dicts and lists (or tuples) whose leaves are tensors, numpy
 arrays or numbers; it flattens in a fixed order (dict keys sorted, lists in
 order) and each leaf's path is recorded in the manifest.  Tensors are copied
-to the host before they are written.  Save is atomic (tmp dir + rename) and
-optionally async (background thread); ``restore`` puts every leaf on the
-device the caller names.  keep_last garbage-collects old steps only after a
-newer step is durable — a crash mid-save never loses the previous
-checkpoint.
+to the host before they are written; a bf16 tensor, which numpy cannot
+hold, is written as its int16 bits and its manifest entry says
+``"torch_dtype": "bfloat16"``, so it is restored as bf16.  Save is atomic
+(tmp dir + rename) and optionally async (background thread); ``restore``
+puts every leaf on the device the caller names.  keep_last
+garbage-collects old steps only after a newer step is durable — a crash
+mid-save never loses the previous checkpoint.
 """
 from __future__ import annotations
 
@@ -51,11 +53,21 @@ def _unflatten(like, leaves):
 
 
 def _host(leaf, copy: bool = False) -> np.ndarray:
-    """``leaf`` as a host array; with ``copy`` never one that shares memory
-    with the caller's tensor or array (a CPU tensor's ``numpy()`` does)."""
+    """``leaf`` as a host array (a bf16 tensor's int16 bits); with ``copy``
+    never one that shares memory with the caller's tensor or array (a CPU
+    tensor's ``numpy()`` does)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=copy).numpy()
+        t = leaf.detach().to("cpu", copy=copy)
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16
+                else t).numpy()
     return np.array(leaf, copy=copy) if copy else np.asarray(leaf)
+
+
+def _tensor(arr: np.ndarray, meta: dict) -> torch.Tensor:
+    """A restored leaf's tensor, bf16 again where it was saved from one."""
+    t = torch.from_numpy(arr)
+    return t.view(torch.bfloat16) if meta.get("torch_dtype") == "bfloat16" \
+        else t
 
 
 def _step_dir(directory: str, step: int) -> str:
@@ -92,9 +104,11 @@ def save(directory: str, step: int, tree: Any, metadata: dict | None = None):
         data = buf.getvalue()
         with open(os.path.join(tmp, fn), "wb") as f:
             f.write(data)
-        manifest["leaves"].append({"file": fn, "shape": list(arr.shape),
-                                   "dtype": str(arr.dtype),
-                                   "crc32": zlib.crc32(data)})
+        meta = {"file": fn, "shape": list(arr.shape), "dtype": str(arr.dtype),
+                "crc32": zlib.crc32(data)}
+        if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+            meta["torch_dtype"] = "bfloat16"
+        manifest["leaves"].append(meta)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -126,12 +140,12 @@ def restore(directory: str, step: int, tree_like: Any,
         raise ValueError(f"checkpoint paths {manifest['paths']} differ from "
                          f"the target's {[p for p, _ in flat]}")
     out = []
-    for i, (p, like) in enumerate(flat):
-        arr = _read_leaf(path, manifest["leaves"][i], strict_checksum)
+    for (p, like), meta in zip(flat, manifest["leaves"]):
+        arr = _read_leaf(path, meta, strict_checksum)
         expect = tuple(like.shape) if hasattr(like, "shape") else ()
         if tuple(arr.shape) != expect:
             raise ValueError(f"leaf {p}: shape {arr.shape} != {expect}")
-        out.append(torch.from_numpy(arr).to(dev))
+        out.append(_tensor(arr, meta).to(dev))
     return _unflatten(tree_like, iter(out)), manifest["metadata"]
 
 
@@ -159,7 +173,7 @@ def restore_flat(directory: str, step: int,
     if len(keys) != manifest["n_leaves"]:
         raise ValueError(f"{path}: {len(keys)} keys vs "
                          f"{manifest['n_leaves']} leaves")
-    out = {key: torch.from_numpy(_read_leaf(path, meta, strict_checksum))
+    out = {key: _tensor(_read_leaf(path, meta, strict_checksum), meta)
            .to(dev) for key, meta in zip(keys, manifest["leaves"])}
     return out, manifest["metadata"]
 
@@ -176,9 +190,11 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, metadata: dict | None = None):
         # copy to the host synchronously (the caller may then reuse its
-        # tensors), write in the background
-        host_tree = _unflatten(tree, iter([_host(x, copy=True)
-                                           for _, x in _flatten(tree)]))
+        # tensors, and an in-place optimizer does), write in the background;
+        # tensors stay tensors, so a bf16 leaf keeps its dtype
+        host_tree = _unflatten(tree, iter([
+            x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor)
+            else _host(x, copy=True) for _, x in _flatten(tree)]))
 
         def work():
             save(self.dir, step, host_tree, metadata)

@@ -54,13 +54,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's dtype.
 
     ``causal`` masks key ``j`` from query ``i`` when ``i < j`` (top-left
-    aligned, as the reference).  Hq must be a multiple of Hkv."""
+    aligned, as the reference).  Hq must be a multiple of Hkv.  Forward
+    only: asked for a gradient (grad mode on and q, k or v requiring it)
+    it raises, on the CPU as on the card."""
     b, hq, sq, d = q.shape
     bk, hkv, skv, dk = k.shape
     if v.shape != k.shape or bk != b or dk != d or hq % hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not form "
                          f"(B, Hq, Sq, D) / (B, Hkv, Skv, D) with Hkv | Hq")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # on the card the result is written into a tensor with no grad_fn,
+        # which would drop the gradients of q, k and v without a word
+        raise RuntimeError(
+            "flash_attention has no backward: the reference defines no "
+            "backward kernel and trains through the plain attention "
+            "(Model(use_flash_kernel=False)); call it under torch.no_grad() "
+            "or on tensors that do not require grad")
     if q.device.type == "cpu":
         o = attention_ref(q.reshape(b * hq, sq, d), k.reshape(b * hkv, skv, d),
                           v.reshape(b * hkv, skv, d), causal=causal)

@@ -172,8 +172,20 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
     return w.mul_(std).to(dtype)
 
 
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """logits (B, S, V) any float dtype; labels (B, S) integer -> the mean
+    nats over (B, S), in float32.  The max is taken out of the gradient, as
+    the reference's ``stop_gradient``."""
+    logits = logits.float()
+    shifted = logits - logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    gold = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
 def param_dict(p: dict[str, torch.Tensor]) -> nn.ParameterDict:
-    """Weights as parameters without gradients (training is a later slice),
-    under the reference's leaf names."""
+    """Weights as parameters under the reference's leaf names, without
+    gradients until a trainer turns them on (``requires_grad_``)."""
     return nn.ParameterDict({k: nn.Parameter(w, requires_grad=False)
                              for k, w in p.items()})

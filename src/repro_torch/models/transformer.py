@@ -9,28 +9,37 @@ and the gated MLP), ``moe`` (the same attention and ``models/moe.py``),
 ``mamba2`` and ``rwkv6`` (``models/ssm.py``).  A hybrid (zamba2) applies
 its one ``shared`` dense block between segments, not after the last, with
 a KV cache of its own per application.  Tied embeddings, the sqrt(d)
-embedding scale and the ``vision_patches`` prefix stub are ported;
-training (``loss``, remat) and the sharding hook are not yet.
+embedding scale and the ``vision_patches`` prefix stub are ported, and
+so are the training loss and remat: under ``remat="full"`` each layer of
+``layers`` runs through ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan body), the hybrid's ``shared`` block not, as
+it sits outside the reference's scan.  The sharding hook is not ported.
 
 Model API:
   Model(cfg, device=None, dtype=torch.bfloat16, generator=None, ...)
   forward(tokens, extra=None)          -> logits (B, S, padded vocab)
   forward_aux(tokens, extra=None)      -> (logits, {"lb_loss", "drop_frac"})
+  loss(tokens, labels, extra=None)     -> (total, {"lb_loss", "drop_frac",
+                                                   "ce"})
   init_cache(batch, max_len)           -> cache
   prefill(tokens, cache, extra=None)   -> (last-token logits, cache)
   decode(token, cache, pos)            -> (logits, cache)
 
-The weights hold no gradients: training is a later slice.
+The weights are made without gradients, so serving builds no graph; a
+trainer turns them on (``model.requires_grad_(True)``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.core.table import resolve_device
 from . import attention as A
 from . import ssm as S
-from .common import ArchConfig, dense_init, glu_act, rms_norm
+from .common import (ArchConfig, dense_init, glu_act, rms_norm,
+                     softmax_cross_entropy)
 from .moe import init_moe, moe_forward
 
 F32 = torch.float32
@@ -233,22 +242,27 @@ class Model(nn.Module):
     ``cuda`` unless the caller names another; without CUDA that raises.
     ``expert_pad`` pads the expert count to a multiple (the padding
     experts are masked out of the routing) and ``capacity_factor`` sizes
-    the experts' capacity, as the reference's arguments of those names.
-    Parameters the reference creates in float32 (the SSMs' decays and
-    skips) stay float32 in a bf16 model."""
+    the experts' capacity, and ``remat`` (``"none"`` or ``"full"``)
+    recomputes each layer in the backward pass, as the reference's
+    arguments of those names.  Parameters the reference creates in float32
+    (the SSMs' decays and skips) stay float32 in a bf16 model."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  dtype: torch.dtype = torch.bfloat16,
                  generator: torch.Generator | None = None,
                  vocab_pad: int = 1, use_flash_kernel: bool = False,
-                 expert_pad: int = 16, capacity_factor: float = 1.25):
+                 expert_pad: int = 16, capacity_factor: float = 1.25,
+                 remat: str = "none"):
         super().__init__()
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         if generator.device.type != dev.type:
             raise ValueError(f"generator on {generator.device}, model on {dev}")
+        if remat not in ("none", "full"):
+            raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
         self.cfg = cfg
+        self.remat = remat
         self.vocab_pad = vocab_pad
         self.expert_pad = expert_pad
         self.use_flash_kernel = use_flash_kernel
@@ -337,13 +351,32 @@ class Model(nn.Module):
         drop = torch.zeros((), dtype=F32, device=x.device)
         args = (positions, n_prefix, self.use_flash_kernel,
                 self.capacity_factor)
+        remat = self.remat == "full" and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x, aux = layer(x, *args)
+            if remat:
+                x, aux = checkpoint(layer, x, *args, use_reentrant=False)
+            else:
+                x, aux = layer(x, *args)
             if aux is not None:
                 lb, drop = lb + aux[0], drop + aux[1]
             if i in self.shared_after:
                 x, _ = self.shared(x, *args)
         return self._head(x), {"lb_loss": lb, "drop_frac": drop}
+
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
+             extra: dict | None = None):
+        """Next-token cross-entropy -> (total, aux): the logits past the
+        vision prefix at positions :-1 against ``labels`` at 1:, plus 0.01
+        of the load-balancing loss; ``aux`` is ``forward_aux``'s with
+        ``"ce"`` added."""
+        logits, aux = self.forward_aux(tokens, extra)
+        n_prefix = logits.shape[1] - labels.shape[1]
+        if n_prefix:
+            logits = logits[:, n_prefix:]
+        ce = softmax_cross_entropy(logits[:, :-1],
+                                   labels[:, 1:].to(logits.device))
+        aux["ce"] = ce
+        return ce + 0.01 * aux["lb_loss"], aux
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,

@@ -215,3 +215,25 @@ def test_choose_exchange_uses_eq3():
     h100 = CLUSTERS["h100_ib"]
     assert choose_exchange(h100, 1, 1e9, 10e9) == "broadcast"
     assert choose_exchange(h100, 16, 1e9, 10e9) == "shuffle"
+
+
+@pytest.mark.parametrize("manager", [False, True])
+def test_bf16_leaves_round_trip(tmp_path, manager):
+    """A bf16 tensor, which numpy cannot hold, is saved as its int16 bits
+    and restored as the same bf16 tensor, by ``save`` and by the
+    asynchronous manager (whose host copy keeps the dtype)."""
+    w = torch.randn((3, 5), generator=torch.Generator().manual_seed(0)
+                    ).to(torch.bfloat16)
+    tree = {"w": w, "v": torch.ones(4), "step": torch.tensor(3,
+                                                             dtype=torch.int32)}
+    if manager:
+        mgr = ckpt.CheckpointManager(str(tmp_path), async_save=True)
+        mgr.save(7, tree)
+        step, got, _ = mgr.restore_latest(tree, device="cpu")
+        assert step == 7
+    else:
+        ckpt.save(str(tmp_path), 7, tree)
+        got, _ = ckpt.restore(str(tmp_path), 7, tree, device="cpu")
+    assert got["w"].dtype == torch.bfloat16 and torch.equal(got["w"], w)
+    assert got["v"].dtype == torch.float32 and torch.equal(got["v"], tree["v"])
+    assert got["step"].dtype == torch.int32 and int(got["step"]) == 3

@@ -21,7 +21,7 @@ from repro.queries import QUERIES as REF_QUERIES
 ROOT = Path(__file__).resolve().parents[1]
 CPU = ["--sf", "0.005", "--seed", "11", "--device", "cpu"]
 EXAMPLES = ("quickstart", "plan_quickstart", "sql_quickstart",
-            "groupby_paths", "analytics_distributed", "serve_lm")
+            "groupby_paths", "analytics_distributed", "serve_lm", "train_lm")
 
 
 def _load(path: Path, name: str):
@@ -159,6 +159,45 @@ def test_serve_lm():
                                   logits[:, -1].argmax(-1).numpy())
     # seeded: the same tokens again
     np.testing.assert_array_equal(mod.main(args)["tokens"], out["tokens"])
+
+
+def test_train_lm_batches_are_the_references():
+    """``synthetic_batch`` draws the reference's zipf stream byte for
+    byte."""
+    ref = _load(ROOT / "examples" / "train_lm.py", "train_lm")
+    port = example("train_lm")
+    a, b = np.random.default_rng(0), np.random.default_rng(0)
+    for shape in ((8, 128), (2, 16), (3, 5)):
+        want = ref.synthetic_batch(a, 512, *shape)
+        got = port.synthetic_batch(b, 512, *shape)
+        for k in ("tokens", "labels"):
+            assert got[k].dtype == torch.int32
+            assert got[k].numpy().tobytes() == \
+                np.asarray(want[k]).tobytes(), (k, shape)
+
+
+def test_train_lm(tmp_path, capsys):
+    """Step 1's loss is ``Model.loss`` of the seeded model on the first
+    batch; a rerun into the same directory restores the checkpoint and
+    goes on from the next step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    mod = example("train_lm")
+    args = ["--steps", "3", "--batch", "2", "--seq", "16", "--device", "cpu",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "3"]
+    losses = mod.main(args)
+    assert sorted(losses) == [1]
+    cfg = get_config("mistral_nemo_12b").reduced()
+    model = Model(cfg, device="cpu", dtype=torch.float32, expert_pad=1,
+                  generator=torch.Generator().manual_seed(0))
+    batch = mod.synthetic_batch(np.random.default_rng(0), cfg.vocab, 2, 16)
+    with torch.no_grad():
+        want, _ = model.loss(batch["tokens"], batch["labels"])
+    assert losses[1] == pytest.approx(float(want), rel=1e-6)
+    again = mod.main(args[:1] + ["12"] + args[2:])
+    assert sorted(again) == [4, 10]
+    out = capsys.readouterr().out
+    assert "restored from step 3" in out and "step    4  loss=" in out
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

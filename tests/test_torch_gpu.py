@@ -882,6 +882,40 @@ def test_model_families_on_card_equal_the_cpu(cuda, monkeypatch, arch):
     assert torch.equal(ids[0], ids[1])
 
 
+def test_train_step_on_card_equals_the_cpu(cuda, monkeypatch):
+    """Granite-MoE-3B reduced in float32: one step of ``make_train_step``
+    on the card (remat ``full``, so the counting-rank kernel runs twice a
+    MoE layer) against the same step on the CPU (no remat): the metrics at
+    relative 1e-5, every parameter after the step at relative L2 1e-4."""
+    from repro_torch.train import optimizer, trainstep
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config("granite_moe_3b_a800m").reduced()
+    model = Model(cfg, dtype=torch.float32, expert_pad=1, remat="full")
+    cpu = Model(cfg, device="cpu", dtype=torch.float32, expert_pad=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab, (4, 64),
+                           generator=torch.Generator().manual_seed(0))
+    ocfg = optimizer.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=3)
+    metrics = {}
+    for m in (cpu, model):
+        step = trainstep.make_train_step(m, ocfg)
+        state = trainstep.init_train_state(m)
+        t = tokens.to(m.device)
+        K.reset_launches()
+        metrics[m.device.type] = {k: float(v) for k, v in
+                                  step(state, {"tokens": t, "labels": t})
+                                  .items()}
+    assert K.launches["counting_rank"] == 2 * cfg.n_layers
+    for k, want in metrics["cpu"].items():
+        assert metrics["cuda"][k] == pytest.approx(want, rel=1e-5, abs=1e-7), k
+    want = dict(cpu.named_parameters())
+    for name, p in model.named_parameters():
+        w = want[name].detach()
+        rel = float(torch.linalg.norm(p.detach().cpu() - w) /
+                    torch.linalg.norm(w).clamp(min=1e-30))
+        assert rel <= 1e-4, (name, rel)
+
+
 # ---------------------------------------------------------------------------
 # serving and approximate answers on the card
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Import hygiene of the port: ``repro_torch`` (its serving and
-approximate layers, the SF 1000 dry-run and every model family
-included), ``chip_smoke.py``, the port's examples
+approximate layers, the SF 1000 dry-run, every model family and the
+training path included), ``chip_smoke.py``, the port's examples
 (``examples/torch_*.py``) and its timing tools (``tools/time_*.py``) never
 import ``jax`` or anything of the reference package ``repro``; every
 example resolves its device through ``core/table.py::resolve_device``,
@@ -101,7 +101,7 @@ def test_sources_import_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("time_*.py")) \
         + _EXAMPLES
-    assert len(files) > 15 and len(_EXAMPLES) == 6
+    assert len(files) > 15 and len(_EXAMPLES) == 7
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
@@ -154,6 +154,49 @@ def test_example_resolves_its_device(path):
     text = path.read_text()
     assert "resolve_device(args.device)" in text
     assert 'ap.add_argument("--device", default="cuda")' in text
+
+
+def test_training_runs_with_jax_and_reference_blocked(tmp_path):
+    """The trainer (``launch/train.py``), the optimizer and train step
+    (``train/``), the loss and remat: two smoke steps, a checkpoint and its
+    restore, and the example's three steps, with jax and repro blocked."""
+    code = f"""
+import importlib.util
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+import torch
+from repro_torch import configs
+from repro_torch.launch import train
+from repro_torch.models import Model
+from repro_torch.train import optimizer, trainstep
+args = ["--smoke", "--device", "cpu", "--batch", "2", "--seq", "8",
+        "--ckpt-dir", {str(tmp_path / "a")!r}, "--ckpt-every", "2"]
+out = train.main(args + ["--steps", "2"])
+assert out["steps"] == [1, 2]
+assert train.main(args + ["--steps", "1"])["steps"] == [3]
+cfg = configs.get_config("zamba2_1_2b").reduced()
+model = Model(cfg, device="cpu", dtype=torch.float32, remat="full")
+step = trainstep.make_train_step(model, optimizer.AdamWConfig(), "int8_ef", 2)
+state = trainstep.init_train_state(model, "int8_ef")
+tokens = torch.zeros((2, 8), dtype=torch.int64)
+m = step(state, {{"tokens": tokens, "labels": tokens}})
+assert sorted(m) == ["ce", "drop_frac", "grad_norm", "lb_loss", "loss", "lr"]
+spec = importlib.util.spec_from_file_location(
+    "ex", {str(ROOT / "examples" / "torch_train_lm.py")!r})
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+losses = mod.main(["--steps", "3", "--batch", "2", "--seq", "8", "--device",
+                   "cpu", "--ckpt-dir", {str(tmp_path / "b")!r}])
+assert list(losses) == [1]
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
+            and sys.modules[m] is not None]
+print("ok")
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
 
 
 def test_dryrun_and_examples_run_with_jax_and_reference_blocked(tmp_path):
