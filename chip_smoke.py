@@ -190,6 +190,24 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      finite, the parameters changed); (d) ``launch/train.py --smoke`` twice
      into one directory (the second restores step 6 and goes on from 7)
      and ``examples/torch_train_lm.py --steps 20``.
+  14. (after 13) the sharded path (``distributed/shardings.py``,
+     ``Model.constrain``, ``launch/train.py`` under a mesh) on a one-rank
+     nccl group, mesh (data 1, model 1), destroyed at its end: (a) one
+     train step of Granite at its published width, depth 2, float32,
+     sharded with constrain on, seq_parallel off and on, against the
+     unsharded step (loss and the parameters' tree within relative 1e-5, a
+     leaf within 1e-4; a second unsharded step printed beside as the noise
+     floor); (b) Granite-MoE-3B in full through ``launch/train.py`` on the
+     mesh, bf16, remat full, 3 steps of B 4 x S 1024 (the median of steps
+     2-3, peak memory, 64 counting-rank launches a step, the idle share of
+     one more, profiled step); (c) its sharded forward with the flash
+     kernel at B 2 x S 4096 against the unsharded one (max abs difference
+     0; 32 flash and 32 counting-rank launches, on the local shards); (d)
+     in a subprocess started first and run beside (a)-(c), the LM
+     dry-run's cells qwen1_5_110b train_4k 16x16, deepseek_v2_236b
+     decode_32k 2x16x16 and rwkv6_3b long_500k 16x16 on a fake group, then
+     ``bench_roofline`` over them (host seconds a cell; the subprocess
+     never initialises CUDA).
 
 It prints the card line and a ``{"kernels": [...]}`` line before the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -323,6 +341,31 @@ TRAIN_REMAT_REL_L2 = 1e-5
 TRAIN_FULL = dict(batch=4, seq=1024, steps=6)
 TRAIN_SMOKE_ARGS = ["--smoke", "--steps", "6", "--ckpt-every", "3"]
 TRAIN_EXAMPLE_ARGS = ["--steps", "20"]
+# phase 14: the sharded path on a one-rank mesh.  (a) Granite at its
+# published width, depth 2, float32: one sharded train step against the
+# unsharded one.  The loss and the gradients' global norm within 1e-5, 10x
+# phase 13(b)'s noise floor (two unsharded runs 9.0e-7 relative L2 over
+# the gradient); the parameters' whole tree after AdamW within 1e-7, 10x
+# this check's own floor (two unsharded steps read 1.02e-8, 9.8e-9 and
+# 9.6e-9 on the H100); a leaf 1e-4 (AdamW's first step moves a
+# zero-initialised norm scale by about lr * sign(g), so a leaf amplifies
+# what the tree averages).
+# (b) Granite in full through launch/train.py; (c) its sharded forward with
+# the flash kernel at phase 12's shape, equal to the unsharded one; (d)
+# three full-width LM dry-run cells (a dense train step on one pod, an MoE
+# decode on two, an SSM's long decode), then bench_roofline
+SHARD_ARCH = "granite_moe_3b_a800m"
+SHARD_WIDE_LAYERS = 2
+SHARD_WIDE_SEQ = (2, 128)
+SHARD_LOSS_RTOL = 1e-5
+SHARD_NORM_RTOL = 1e-5
+SHARD_TREE_REL_L2 = 1e-7
+SHARD_LEAF_REL_L2 = 1e-4
+SHARD_TRAIN = ["--steps", "3", "--batch", "4", "--seq", "1024"]
+SHARD_PREFILL = (2, 4096)
+DRYRUN_LM_CELLS = (("qwen1_5_110b", "train_4k", False),
+                   ("deepseek_v2_236b", "decode_32k", True),
+                   ("rwkv6_3b", "long_500k", False))
 
 
 _T0 = time.perf_counter()
@@ -2685,6 +2728,335 @@ def run_training(dev, card: str) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the sharded path on a mesh of one card
+# ---------------------------------------------------------------------------
+
+_DRYRUN_SCRIPT = r"""
+import json, os, sys, time
+sys.path.insert(0, os.path.join(os.getcwd(), "src"))
+import torch
+from repro_torch.launch import dryrun as D
+from repro_torch.bench import bench_roofline
+out_dir, cells = sys.argv[1], json.loads(sys.argv[2])
+for arch, shape, multi_pod in cells:
+    t0 = time.perf_counter()
+    rec = D.dryrun_cell(arch, shape, multi_pod)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"{arch}__{shape}__{rec['mesh']}.json"),
+              "w") as f:
+        json.dump(rec, f)
+    print("CELL " + json.dumps({
+        "arch": arch, "shape": shape, "mesh": rec["mesh"],
+        "host_s": round(secs, 2), "flops": rec["flops"],
+        "traffic_bytes": rec["traffic_bytes"],
+        "collective_count": rec["collective_count"],
+        "argument_GB": rec["memory"]["argument_bytes"] / 1e9,
+        "bottleneck": rec["roofline"]["bottleneck"],
+        "step_lower_bound_s": rec["roofline"]["step_lower_bound_s"]}),
+        flush=True)
+bench_roofline.main(["--results", out_dir])
+print("CARD_UNTOUCHED " + json.dumps(not torch.cuda.is_initialized()))
+"""
+
+
+def start_lm_dryrun(tmp: str):
+    """14(d), started first: the three full-width dry-run cells and
+    ``bench_roofline`` in a subprocess (the fake group of 256 or 512 ranks
+    cannot share a process with nccl), beside 14(a)-(c)."""
+    cells = json.dumps([list(c) for c in DRYRUN_LM_CELLS])
+    return subprocess.Popen([sys.executable, "-c", _DRYRUN_SCRIPT, tmp,
+                             cells], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_lm_dryrun(proc, card: str) -> None:
+    """14(d): every cell ok, ``bench_roofline``'s line for each, and the
+    subprocess never initialised CUDA (nothing allocated on the card)."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"14d: the LM dry-run failed: {err[-3000:]}")
+    cells = [json.loads(line[5:]) for line in out.splitlines()
+             if line.startswith("CELL ")]
+    lines = [line for line in out.splitlines()
+             if line.startswith("roofline_")]
+    untouched = [json.loads(line.split(" ", 1)[1]) for line in
+                 out.splitlines() if line.startswith("CARD_UNTOUCHED ")]
+    for c in cells:
+        log(f"14d dry-run {c['arch']} {c['shape']} {c['mesh']}: "
+            f"{c['host_s']:.1f} s of host time (beside 14a-c); per device "
+            f"{c['flops']:.3e} FLOP, {c['traffic_bytes']:.3e} B unfused "
+            f"traffic, collectives {json.dumps(c['collective_count'])}, "
+            f"arguments {c['argument_GB']:.2f} GB; roofline at h100_ib "
+            f"{c['step_lower_bound_s']:.3f} s, {c['bottleneck']}-bound "
+            f"(the model's arithmetic on published rates, not a "
+            f"measurement)")
+    for line in lines:
+        log(f"14d bench_roofline: {line}")
+    if len(cells) != len(DRYRUN_LM_CELLS) or len(lines) != len(cells) or \
+            any("FAILED" in line for line in lines) or untouched != [True]:
+        raise AssertionError(f"14d: cells {cells}, lines {lines}, card "
+                             f"untouched {untouched}")
+    log(f"14d: the dry-run's process never initialised CUDA: device memory "
+        f"unchanged; torch.testing._internal.distributed.fake_pg imported "
+        f"({card})")
+
+
+def shard_errors(got: dict, want: dict) -> tuple[float, float, str]:
+    """(whole-tree relative L2, the worst leaf's, its name)."""
+    diff = sum((got[k].double() - w.double()).square().sum().item()
+               for k, w in want.items())
+    total = sum(w.double().square().sum().item() for w in want.values())
+    worst, leaf = max((rel_l2(got[k], w) if w.norm() > 0 else
+                       got[k].abs().max().item(), k)
+                      for k, w in want.items())
+    return math.sqrt(diff / total), worst, leaf
+
+
+def check_sharded_step(dev, mesh, card: str) -> None:
+    """14(a): one train step of Granite at its published width, depth 2,
+    float32, sharded on the mesh (constrain on, seq_parallel off and on)
+    against the unsharded step; a second unsharded step reads the card's
+    noise floor (its scatter-adds' order)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import kernels as K
+    from repro_torch.distributed import shardings as sh
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer, trainstep
+    cfg = family_config(SHARD_ARCH, SHARD_WIDE_LAYERS)
+    axes = sh.MeshAxes()
+    tokens = torch.randint(0, cfg.vocab, SHARD_WIDE_SEQ, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(SEED + 1))
+    ocfg = optimizer.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=3)
+
+    def one_step(seq_parallel=None):
+        sharded = seq_parallel is not None
+        model = Model(cfg, device=dev, dtype=torch.float32, expert_pad=1,
+                      generator=torch.Generator(device=dev).manual_seed(SEED),
+                      constrain=sh.make_constrain(mesh, axes, seq_parallel)
+                      if sharded else None)
+        batch = {"tokens": tokens, "labels": tokens}
+        if sharded:
+            sh.distribute_model(model, mesh, axes)
+            batch = sh.distribute_tree(batch, sh.batch_specs(axes, batch),
+                                       mesh)
+        step = trainstep.make_train_step(model, ocfg)
+        state = trainstep.init_train_state(model)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        secs = time.perf_counter() - t0
+        params = {k: (p.full_tensor() if isinstance(p, DTensor) else p)
+                  .detach().clone() for k, p in model.named_parameters()}
+        launches = K.launches["counting_rank"]
+        del model, step, state, m
+        free_model(dev)
+        return loss, params, launches, secs, norm
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    base = one_step()
+    floor = one_step()
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    f_tree, f_leaf, f_name = shard_errors(floor[1], base[1])
+    log(f"14a {cfg.name} ({cfg.n_layers} layers, published width) float32 "
+        f"B={SHARD_WIDE_SEQ[0]} S={SHARD_WIDE_SEQ[1]}: unsharded vs "
+        f"unsharded (the noise floor): loss {rel(floor[0], base[0]):.2e}, "
+        f"grad norm {rel(floor[4], base[4]):.2e}, parameters after AdamW "
+        f"relative L2 {f_tree:.3e} (worst leaf {f_name} {f_leaf:.3e}); "
+        f"step {base[3]:.2f} s ({card})")
+    for sp in (False, True):
+        loss, params, launches, secs, norm = one_step(sp)
+        loss_err, norm_err = rel(loss, base[0]), rel(norm, base[4])
+        tree, leaf, name = shard_errors(params, base[1])
+        log(f"14a sharded on mesh (data 1, model 1), constrain on, "
+            f"seq_parallel {'on' if sp else 'off'}: loss {loss:.6f} "
+            f"({loss_err:.2e}), grad norm {norm:.6f} ({norm_err:.2e}), "
+            f"parameters after AdamW relative L2 {tree:.3e} (worst leaf "
+            f"{name} {leaf:.3e}); limits: loss {SHARD_LOSS_RTOL:.0e}, grad "
+            f"norm {SHARD_NORM_RTOL:.0e}, tree {SHARD_TREE_REL_L2:.0e}, a "
+            f"leaf {SHARD_LEAF_REL_L2:.0e}; counting rank {launches} "
+            f"launches on the local shards ({n_moe} MoE layers); step "
+            f"{secs:.2f} s (DTensor's first planning included) ({card})")
+        if not (loss_err <= SHARD_LOSS_RTOL and norm_err <= SHARD_NORM_RTOL
+                and tree <= SHARD_TREE_REL_L2
+                and leaf <= SHARD_LEAF_REL_L2 and launches == n_moe):
+            raise AssertionError(f"14a: the sharded step differs: loss "
+                                 f"{loss_err}, grad norm {norm_err}, tree "
+                                 f"{tree}, {name} {leaf}, launches "
+                                 f"{launches}")
+
+
+def run_sharded_train(dev, card: str) -> dict[str, int]:
+    """14(b): Granite-MoE-3B in full through ``launch/train.py``'s loop on
+    the mesh (the trainer reuses the group): bf16, remat full, steps of B
+    4 x S 1024; the median of steps 2-3, peak memory, the counting rank's
+    launches a step, and the idle share of one more, profiled step."""
+    import tempfile
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.distributed import shardings as sh
+    from repro_torch.launch import train
+    from repro_torch.train import optimizer, trainstep
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        K.reset_launches()
+        res = train.main(["--arch", SHARD_ARCH, *SHARD_TRAIN, "--ckpt-dir",
+                          tmp, "--ckpt-every", "100"])
+        torch.cuda.synchronize(dev)
+    counts = {k: v for k, v in K.launches.items() if v}
+    steps = len(res["steps"])
+    walls = [s * 1e3 for s in res["step_s"]]
+    med = statistics.median(walls[1:])
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    model, state, mesh = res["model"], res["state"], res["mesh"]
+    b, s = int(SHARD_TRAIN[3]), int(SHARD_TRAIN[5])
+    tokens = torch.randint(0, model.cfg.vocab, (b, s), device=dev)
+    axes = sh.MeshAxes()
+    batch = sh.distribute_tree({"tokens": tokens, "labels": tokens},
+                               sh.batch_specs(axes, {"tokens": tokens,
+                                                     "labels": tokens}),
+                               mesh)
+    step = trainstep.make_train_step(model, optimizer.AdamWConfig(
+        lr=1e-3, warmup_steps=10, total_steps=steps))
+    by_name = device_time_by_kernel(lambda: step(state, batch))
+    shape = dict(zip(mesh.mesh_dim_names, map(int, mesh.shape)))
+    log(f"14b launch/train.py {' '.join(SHARD_TRAIN)} on mesh "
+        f"{json.dumps(shape)}: {model.cfg.name} in full, "
+        f"{str(model.dtype)[6:]}, remat {model.remat}; steps "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms, median of steps "
+        f"2-{steps} {med:.1f} ms ({b * s / med * 1e3:.0f} tokens/s); losses "
+        f"{', '.join(f'{x:.4f}' for x in res['loss'])}; peak device memory "
+        f"{peak:.2f} GB; launches of {steps} steps {json.dumps(counts)} "
+        f"({card})")
+    log(busy_line(f"14b sharded train step B={b} S={s} (one more step, "
+                  f"profiled)", sum(by_name.values()), med) + f" ({card})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log("14b sharded train step device time by kernel: " +
+        "; ".join(f"{name[:64]} {ms:.1f} ms" for name, ms in top))
+    n_moe = model.cfg.n_layers - model.cfg.first_dense_layers
+    per_step = n_moe * (2 if model.remat == "full" else 1)  # + recompute
+    want = {"counting_rank": per_step * steps, "flash_attention": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want or not all(math.isfinite(x) for x in res["loss"]):
+        raise AssertionError(f"14b: launches {got}, want {want}; losses "
+                             f"{res['loss']}")
+    del model, state, res, step, batch
+    free_model(dev)
+    return counts
+
+
+def run_sharded_prefill(dev, mesh, card: str) -> dict[str, int]:
+    """14(c): Granite-MoE-3B in full, bf16, with the flash kernel: the
+    sharded forward of phase 12's B 2 x S 4096 against the unsharded one,
+    element by element, both under ``torch.use_deterministic_algorithms``
+    (the MoE combine's bf16 ``index_add`` otherwise adds in no fixed order
+    on the card, and a flipped routing decision downstream moved two
+    unsharded forwards' logits apart by 6.4); within the difference of two
+    unsharded forwards, which is then 0; the flash kernel and the counting
+    rank launched on the local shards."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.distributed import shardings as sh
+    from repro_torch.models import Model
+    cfg = family_config(SHARD_ARCH, None)
+    axes = sh.MeshAxes()
+    b, s = SHARD_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(SEED + 2))
+
+    def build(sharded):
+        model = Model(cfg, device=dev, dtype=torch.bfloat16, expert_pad=1,
+                      use_flash_kernel=True,
+                      generator=torch.Generator(device=dev).manual_seed(SEED),
+                      constrain=sh.make_constrain(mesh, axes)
+                      if sharded else None)
+        return sh.distribute_model(model, mesh, axes) if sharded else model
+
+    def timed(fn):
+        runs = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(runs)
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with torch.no_grad():
+        plain = build(False)
+        want = plain(tokens)
+        floor = (plain(tokens).float() - want.float()).abs().max().item()
+        plain_ms = timed(lambda: plain(tokens))
+        del plain
+        free_model(dev)
+        model = build(True)
+        dist_tokens = sh.shard_like(tokens, mesh, sh.Spec("data", None))
+        K.reset_launches()
+        got = model(dist_tokens)
+        torch.cuda.synchronize(dev)
+        counts = {k: v for k, v in K.launches.items() if v}
+        err = (got.full_tensor().float() - want.float()).abs().max().item()
+        ms = timed(lambda: model(dist_tokens))
+    torch.use_deterministic_algorithms(deterministic)
+    log(f"14c {cfg.name} in full, bf16, flash kernel, forward B={b} S={s} "
+        f"on mesh (data 1, model 1): logits max abs difference from the "
+        f"unsharded forward {err:.3e} (two unsharded forwards: "
+        f"{floor:.3e}); median of {REPS} {ms:.1f} ms "
+        f"sharded, {plain_ms:.1f} ms unsharded; launches "
+        f"{json.dumps(counts)} ({card})")
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    want_counts = {"counting_rank": n_moe, "flash_attention": cfg.n_layers,
+                   "flash_attention_wgmma": cfg.n_layers}
+    if {k: counts.get(k, 0) for k in want_counts} != want_counts or \
+            err > floor:
+        raise AssertionError(f"14c: launches {counts}, want {want_counts}; "
+                             f"max abs difference {err}")
+    del model, got, want
+    free_model(dev)
+    return counts
+
+
+def run_sharded(dev, card: str) -> dict[str, int]:
+    """Phase 14, on a one-rank nccl group (mesh data 1 x model 1),
+    destroyed at its end; 14(d) runs in a subprocess beside 14(a)-(c).
+    Returns the launch counts of the sharded forward (14c)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import world_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False     # full float32 GEMMs
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = start_lm_dryrun(tmp)
+        try:
+            dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                    world_size=1, device_id=dev)
+            try:
+                mesh = world_mesh(1, 1, False, "cuda")
+                t0 = time.perf_counter()
+                check_sharded_step(dev, mesh, card)
+                t1 = time.perf_counter()
+                run_sharded_train(dev, card)
+                t2 = time.perf_counter()
+                counts = run_sharded_prefill(dev, mesh, card)
+                log(f"14a {t1 - t0:.1f} s, 14b {t2 - t1:.1f} s, 14c "
+                    f"{time.perf_counter() - t2:.1f} s")
+            finally:
+                dist.destroy_process_group()
+            finish_lm_dryrun(proc, card)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2768,6 +3140,10 @@ def main() -> int:
     train_counts = run_training(dev, card)
     log(f"phase 13: {time.perf_counter() - t13:.1f} s; launches of a "
         f"full-size train step {json.dumps(train_counts)}")
+    t14 = time.perf_counter()
+    shard_counts = run_sharded(dev, card)
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s; launches of the "
+        f"sharded forward {json.dumps(shard_counts)}")
     # each kernel's launches on the path that runs it: the local main path,
     # the distributed path (the counting rank), the skew statistics, the
     # 32-bit join probe, one forward of the LM path

@@ -7,8 +7,8 @@ Prints the ``name,us_per_call,derived`` CSV (and the gated benches' report
 lines), each bench under a ``# <name>`` line and followed by its seconds.
 The multi-rank benches run their 8 ranks as a ``ThreadGroup`` on the one
 device: no subprocess.  ``--check`` asks the gated benches for their gates.
-``bench_roofline`` is not ported: it reduces the LM dry-run's output, which
-the port does not have yet.
+``bench_roofline`` reduces the LM dry-run's records
+(``python -m repro_torch.launch.dryrun``) and uses no device.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ ORDER = ("bench_tpch", "bench_baseline", "bench_projection", "bench_kernels",
          "bench_exchange", "bench_skew", "bench_broadcast_impl",
          "bench_q12_plans", "bench_exchange_bytes", "bench_sort_tax",
          "bench_recovery", "bench_serve", "bench_approx")
+# benches that read records and use no device: run after ORDER's
+HOST_ONLY = ("bench_roofline",)
 # the benches that write a JSON report (``--out``) and take ``--check``
 GATED = ("bench_exchange_bytes", "bench_sort_tax", "bench_recovery",
          "bench_serve", "bench_approx")
@@ -79,11 +81,12 @@ def main(argv=None) -> dict[str, float]:
     ap.add_argument("names", nargs="*",
                     help="benches to run (default: all, in order)")
     args = ap.parse_args(argv)
-    unknown = set(args.names) - set(ORDER)
+    unknown = set(args.names) - set(ORDER + HOST_ONLY)
     if unknown:
         ap.error(f"unknown benches: {sorted(unknown)}")
     print("name,us_per_call,derived", flush=True)
-    names = [n for n in ORDER if not args.names or n in args.names]
+    names = [n for n in ORDER + HOST_ONLY
+             if not args.names or n in args.names]
     return run(names, args.device, check=args.check)
 
 

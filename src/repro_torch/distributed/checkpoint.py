@@ -11,6 +11,14 @@ hold, is written as its int16 bits and its manifest entry says
 puts every leaf on the device the caller names.  keep_last
 garbage-collects old steps only after a newer step is durable — a crash
 mid-save never loses the previous checkpoint.
+
+A DTensor leaf (a sharded model's parameter or optimizer state) is saved
+whole: every rank gathers it (``full_tensor``, a collective, so every rank
+of the mesh calls ``save``) and rank 0 of the default group alone writes.
+``restore`` onto a tree whose leaves are DTensors places each leaf as its
+counterpart is placed, on that leaf's mesh, whatever mesh it was saved
+from (the reference restores "with resharding"); each rank reads the files
+itself, after a barrier that lets rank 0's last write land.
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.core.table import resolve_device
 
@@ -52,10 +62,27 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
+def _whole(leaf):
+    """A DTensor leaf gathered whole (on every rank); anything else as it
+    is."""
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
+def _sharded(tree) -> bool:
+    return any(isinstance(x, DTensor) for _, x in _flatten(tree))
+
+
+def _writer() -> bool:
+    """Whether this process writes a sharded tree's files: rank 0 of the
+    default group (the only process where there is none)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host(leaf, copy: bool = False) -> np.ndarray:
     """``leaf`` as a host array (a bf16 tensor's int16 bits); with ``copy``
     never one that shares memory with the caller's tensor or array (a CPU
     tensor's ``numpy()`` does)."""
+    leaf = _whole(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=copy)
         return (t.view(torch.int16) if t.dtype == torch.bfloat16
@@ -86,6 +113,10 @@ def _read_leaf(path: str, meta: dict, strict_checksum: bool) -> np.ndarray:
 
 
 def save(directory: str, step: int, tree: Any, metadata: dict | None = None):
+    if _sharded(tree):
+        tree = _unflatten(tree, iter([_whole(x) for _, x in _flatten(tree)]))
+        if not _writer():
+            return _step_dir(directory, step)
     os.makedirs(directory, exist_ok=True)
     final = _step_dir(directory, step)
     tmp = final + ".tmp"
@@ -129,8 +160,9 @@ def restore(directory: str, step: int, tree_like: Any,
             device: str | torch.device | None = None,
             strict_checksum: bool = True):
     """Load into the structure of ``tree_like``, every leaf a tensor on
-    ``device`` (``cuda`` unless the caller names another).  The saved paths
-    must be ``tree_like``'s, and each leaf's shape its counterpart's."""
+    ``device`` (``cuda`` unless the caller names another), a DTensor placed
+    as its counterpart where that is one.  The saved paths must be
+    ``tree_like``'s, and each leaf's (global) shape its counterpart's."""
     dev = resolve_device(device)
     path = _step_dir(directory, step)
     with open(os.path.join(path, "manifest.json")) as f:
@@ -145,7 +177,11 @@ def restore(directory: str, step: int, tree_like: Any,
         expect = tuple(like.shape) if hasattr(like, "shape") else ()
         if tuple(arr.shape) != expect:
             raise ValueError(f"leaf {p}: shape {arr.shape} != {expect}")
-        out.append(_tensor(arr, meta).to(dev))
+        t = _tensor(arr, meta).to(dev)
+        if isinstance(like, DTensor):
+            t = distribute_tensor(t, like.device_mesh, like.placements,
+                                  src_data_rank=None)
+        out.append(t)
     return _unflatten(tree_like, iter(out)), manifest["metadata"]
 
 
@@ -192,9 +228,14 @@ class CheckpointManager:
         # copy to the host synchronously (the caller may then reuse its
         # tensors, and an in-place optimizer does), write in the background;
         # tensors stay tensors, so a bf16 leaf keeps its dtype
+        # a sharded tree: every rank gathers, rank 0 alone writes
+        sharded = _sharded(tree)
         host_tree = _unflatten(tree, iter([
-            x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor)
-            else _host(x, copy=True) for _, x in _flatten(tree)]))
+            _whole(x).detach().to("cpu", copy=True)
+            if isinstance(x, torch.Tensor) else _host(x, copy=True)
+            for _, x in _flatten(tree)]))
+        if sharded and not _writer():
+            return
 
         def work():
             save(self.dir, step, host_tree, metadata)
@@ -220,6 +261,8 @@ class CheckpointManager:
 
     def restore_latest(self, tree_like, device=None):
         self.wait()
+        if _sharded(tree_like) and dist.is_initialized():
+            dist.barrier()                 # rank 0's last write has landed
         step = latest_step(self.dir)
         if step is None:
             return None, None, None

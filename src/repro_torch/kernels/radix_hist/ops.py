@@ -10,6 +10,13 @@ those of ``repro.kernels.radix_hist.ops``:
                       same key (the position a stable sort on the key gives
                       a row within its key group), and counts (parts,) int32;
   * ``skew_stats``    per-partition totals and the max / mean imbalance.
+
+``counting_rank`` goes through the custom op ``repro_torch::counting_rank``,
+whose fake implementation gives the shapes alone (slot (n,), counts
+(parts,)), so it also runs on ``meta`` tensors.  On a DTensor (the MoE
+layer of a sharded model) the rank is global: the keys are replicated and
+each rank ranks its whole local copy (``local_map``), which on a CUDA
+DTensor launches the kernel on the local tensor.
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch import kernels as K
 from .ref import counting_rank_ref, radix_hist_plain
@@ -149,13 +158,47 @@ def counting_rank(keys: torch.Tensor, parts: int
     """Stable counting rank: keys (n,) in [0, parts) -> (slot (n,) int32,
     counts (parts,) int32).  ``slot[i]`` is the number of rows before i with
     the same key; ``counts[p]`` the rows with key p.  No sort on either
-    path, and the same slots as a stable sort by key would give."""
-    if keys.device.type == "cpu":
-        return counting_rank_ref(keys, parts)
+    path, and the same slots as a stable sort by key would give.  On a
+    DTensor both outputs are replicated DTensors on its mesh."""
+    if isinstance(keys, DTensor):
+        rep = [Replicate()] * keys.device_mesh.ndim
+        return local_map(_counting_rank_op, out_placements=(rep, rep),
+                         in_placements=(rep, None),
+                         device_mesh=keys.device_mesh,
+                         redistribute_inputs=True)(keys, parts)
+    return _counting_rank_op(keys, parts)
+
+
+@torch.library.custom_op("repro_torch::counting_rank", mutates_args=(),
+                         schema="(Tensor keys, int parts) -> (Tensor, Tensor)")
+def _counting_rank_op(keys: torch.Tensor, parts: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _counting_rank(keys, parts)
+
+
+@_counting_rank_op.register_fake
+def _(keys: torch.Tensor, parts: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shapes only (a ``meta`` or fake tensor), within the kernel's
+    bounds."""
+    _check_rank_parts(parts)
+    return (keys.new_empty(keys.shape, dtype=torch.int32),
+            keys.new_empty((parts,), dtype=torch.int32))
+
+
+def _check_rank_parts(parts: int) -> None:
     if not 1 <= parts <= COUNTING_RANK_PARTS_MAX:
         raise ValueError(f"counting_rank: parts must be in [1, "
                          f"{COUNTING_RANK_PARTS_MAX}] (shared memory of the "
                          f"rank pass), got {parts}")
+
+
+def _counting_rank(keys: torch.Tensor, parts: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rank on a plain tensor: the plain version on the CPU, the
+    kernel on CUDA."""
+    if keys.device.type == "cpu":
+        return counting_rank_ref(keys, parts)
+    _check_rank_parts(parts)
     k = _keys32(keys, "counting_rank")
     n = k.shape[0]
     width = parts + 1                  # the reference's reserved padding bin

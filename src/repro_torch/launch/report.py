@@ -1,13 +1,17 @@
-"""Reduce results/dryrun/*.json into the EXPERIMENTS.md §Dry-run/§Roofline
-tables, and results/runs/*.json (fault-runner RunReports) into the
-per-attempt audit table (markdown on stdout).
+"""Reduce results/torch/dryrun/*.json (the LM dry-run's records,
+``launch/dryrun.py``) into the §Dry-run/§Roofline tables, and
+results/runs/*.json (fault-runner RunReports) into the per-attempt audit
+table (markdown on stdout).
 
     PYTHONPATH=src python -m repro_torch.launch.report [--mesh 16x16]
     PYTHONPATH=src python -m repro_torch.launch.report --section runs
 
 The port's own copy of the reference package's report: pure Python, it
-renders the port's ``RunReport`` (rung and CI width included) and reads the
-same JSON files.
+renders the port's ``RunReport`` (rung and CI width included).  The
+dry-run table reads the port's record keys: ``flops`` and
+``traffic_bytes`` per device and the host seconds of a cell (``host_s``),
+where the reference's records hold ``hlo_flops``, ``hlo_bytes`` and
+``compile_s``.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import json
 import os
 
 RESULTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                       "results", "dryrun")
+                       "results", "torch", "dryrun")
 RUNS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                     "results", "runs")
 
@@ -84,7 +88,7 @@ def roofline_table(recs):
 
 
 def dryrun_table(recs):
-    print("| arch | shape | mesh | compile | HLO flops/dev | traffic/dev |"
+    print("| arch | shape | mesh | host | flops/dev | traffic/dev |"
           " collective bytes/dev | temp bytes | arg bytes |")
     print("|---|---|---|---|---|---|---|---|---|")
     for r in recs:
@@ -93,8 +97,8 @@ def dryrun_table(recs):
         mem = r.get("memory", {})
         cb = sum(r.get("collective_bytes", {}).values())
         print(f"| {r['arch']} | {r['shape']} | {r['mesh']} "
-              f"| {r.get('compile_s', 0):.0f}s "
-              f"| {r['hlo_flops']:.2e} | {fmt_bytes(r['hlo_bytes'])} "
+              f"| {r.get('host_s', 0):.0f}s "
+              f"| {r['flops']:.2e} | {fmt_bytes(r['traffic_bytes'])} "
               f"| {fmt_bytes(cb)} "
               f"| {fmt_bytes(mem.get('temp_bytes'))} "
               f"| {fmt_bytes(mem.get('argument_bytes'))} |")

@@ -17,8 +17,8 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import NEG_INF
-from .common import (ArchConfig, apply_rope, dense_init, param_dict,
-                     rms_norm)
+from .common import (ArchConfig, apply_rope, dense_init, merge_dim, on_mesh,
+                     on_shards, param_dict, rms_norm, split_dim)
 
 
 def _at_pos(cache_arr: torch.Tensor, update: torch.Tensor,
@@ -55,25 +55,40 @@ def _qkv(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, kv, hd), positions, cfg.rope_theta)
-    return q, k, v.reshape(b, s, kv, hd)
+    q = apply_rope(split_dim(q, 2, h), positions, cfg.rope_theta)
+    k = apply_rope(split_dim(k, 2, kv), positions, cfg.rope_theta)
+    return q, k, split_dim(v, 2, kv)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: torch.Tensor | None, scale: float) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,L,KV,hd), mask (B,S,L) or None; float32
-    scores and softmax, the output in q's dtype."""
-    b, s, h, hd = q.shape
-    _, l, kv, _ = k.shape
-    g = h // kv
-    qg = q.reshape(b, s, kv, g, hd)
+    scores and softmax, the output in q's dtype (on each rank's (batch,
+    head) shards for DTensors)."""
+    if mask is None:
+        return on_shards(lambda q, k, v: _sdpa_local(q, k, v, None, scale),
+                         (0, 2), (q, 0, 2), (k, 0, 2), (v, 0, 2))
+    return on_shards(lambda q, k, v, m: _sdpa_local(q, k, v, m, scale),
+                     (0, 2), (q, 0, 2), (k, 0, 2), (v, 0, 2),
+                     (on_mesh(mask, q), 0, None))
+
+
+def _sdpa_local(q, k, v, mask, scale: float) -> torch.Tensor:
+    kv = k.shape[2]
+    qg = q.reshape(*q.shape[:2], kv, q.shape[2] // kv, q.shape[3])
     scores = torch.einsum("bskgd,blkd->bkgsl", qg.float(), k.float()) * scale
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgsl,blkd->bskgd", w, v.float())
-    return out.reshape(b, s, h, hd).to(q.dtype)
+    return out.reshape(q.shape).to(q.dtype)                  # (B,S,H,hd)
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+           ) -> torch.Tensor:
+    """Causal flash attention on (B, S, H, hd) q and (B, L, KV, hd) k, v."""
+    return fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True).transpose(1, 2)
 
 
 def causal_mask(b: int, s: int, n_prefix: int = 0,
@@ -95,14 +110,13 @@ def gqa_forward(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
     q, k, v = _qkv(p, cfg, x, positions)
     if use_flash_kernel and n_prefix == 0:
         # the blocked online-softmax kernel (csrc/flash_attention.cu on the
-        # card, its plain version on the CPU)
-        o = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=True)
-        o = o.transpose(1, 2)
+        # card, its plain version on the CPU), given a DTensor's local
+        # shards: its wrapper takes raw pointers
+        o = on_shards(_flash, (0, 2), (q, 0, 2), (k, 0, 2), (v, 0, 2))
     else:
         o = _sdpa(q, k, v, causal_mask(b, s, n_prefix, x.device),
                   1.0 / (cfg.hd ** 0.5))
-    return o.reshape(b, s, -1) @ p["wo"]
+    return merge_dim(o, 2) @ p["wo"]
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -124,7 +138,7 @@ def gqa_prefill(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
     cache = {"k": _at_pos(cache["k"], k, 0), "v": _at_pos(cache["v"], v, 0)}
     o = _sdpa(q, k, v, causal_mask(b, s, n_prefix, x.device),
               1.0 / (cfg.hd ** 0.5))
-    return o.reshape(b, s, -1) @ p["wo"], cache
+    return merge_dim(o, 2) @ p["wo"], cache
 
 
 def gqa_decode(p, cfg: ArchConfig, x: torch.Tensor,
@@ -132,13 +146,14 @@ def gqa_decode(p, cfg: ArchConfig, x: torch.Tensor,
     """x (B, 1, D); attend over cache[:, : pos + 1]."""
     b = x.shape[0]
     l = cache["k"].shape[1]
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    positions = on_mesh(torch.full((b, 1), pos, dtype=torch.int64,
+                                   device=x.device), x)
     q, k, v = _qkv(p, cfg, x, positions)
     ck = _at_pos(cache["k"], k, pos)
     cv = _at_pos(cache["v"], v, pos)
     mask = (torch.arange(l, device=x.device) <= pos).expand(b, 1, l)
     o = _sdpa(q, ck, cv, mask, 1.0 / (cfg.hd ** 0.5))
-    return o.reshape(b, 1, -1) @ p["wo"], {"k": ck, "v": cv}
+    return merge_dim(o, 2) @ p["wo"], {"k": ck, "v": cv}
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +188,7 @@ def _mla_qkv(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
     nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
     q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps,
                  cfg.norms_f32) @ p["wq_b"]
-    q = q.reshape(b, s, cfg.n_heads, nd + rd)
+    q = split_dim(q, 2, cfg.n_heads)                         # (B,S,H,nd+rd)
     q_nope = q[..., :nd]
     q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta)
     kv_a = x @ p["wkv_a"]
@@ -189,21 +204,29 @@ def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope,
     """Expand the latent to per-head keys and values and attend, (B,S,*)
     against (B,L,*): float32 scores and softmax, the output in q's dtype,
     then wo."""
-    b, s, h = q_nope.shape[0], q_nope.shape[1], cfg.n_heads
-    l = c_kv.shape[1]
-    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    kv = (c_kv @ p["wkv_b"]).reshape(b, l, h, nd + vd)
+    nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
+    kv = split_dim(c_kv @ p["wkv_b"], 2, cfg.n_heads)        # (B,L,H,nd+vd)
     k_nope, v = kv[..., :nd], kv[..., nd:]
     scale = 1.0 / ((nd + rd) ** 0.5)
+    args = [(q_nope, 0, 2), (q_rope, 0, 2), (k_nope, 0, 2),
+            (k_rope, 0, None), (v, 0, 2)]                # one shared key head
+    if mask is not None:
+        args.append((on_mesh(mask, q_nope), 0, None))
+    o = on_shards(lambda *t: _mla_scores(*t, scale=scale), (0, 2), *args)
+    return merge_dim(o, 2) @ p["wo"]
+
+
+def _mla_scores(q_nope, q_rope, k_nope, k_rope, v, mask=None, *,
+                scale: float) -> torch.Tensor:
+    """MLA's attention on per-head keys and values: float32 scores and
+    softmax -> (B,S,H,vd) in q's dtype."""
     s_nope = torch.einsum("bshd,blhd->bhsl", q_nope.float(), k_nope.float())
-    s_rope = torch.einsum("bshd,blkd->bhsl", q_rope.float(),
-                          k_rope.float())           # one shared key head
+    s_rope = torch.einsum("bshd,blkd->bhsl", q_rope.float(), k_rope.float())
     scores = (s_nope + s_rope) * scale
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None], NEG_INF)
     w = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bhsl,blhd->bshd", w, v.float()).to(q_nope.dtype)
-    return o.reshape(b, s, h * vd) @ p["wo"]
+    return torch.einsum("bhsl,blhd->bshd", w, v.float()).to(q_nope.dtype)
 
 
 def mla_forward(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -242,7 +265,8 @@ def mla_decode(p, cfg: ArchConfig, x: torch.Tensor,
     """x (B, 1, D); attend over the latent cache[:, : pos + 1]."""
     b = x.shape[0]
     l = cache["ckv"].shape[1]
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    positions = on_mesh(torch.full((b, 1), pos, dtype=torch.int64,
+                                   device=x.device), x)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
     ckv = _at_pos(cache["ckv"], c_kv, pos)
     krope = _at_pos(cache["krope"], k_rope, pos)

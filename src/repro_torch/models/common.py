@@ -6,7 +6,15 @@ reference's numerics: RMS norm and RoPE run in float32 and cast back to the
 input's dtype.  Weights are drawn from an explicit ``torch.Generator``; the
 reference draws from ``jax.random`` keys, so the two give different numbers
 from one seed (the tests carry the reference's weights across instead, with
-``models/convert.py``).
+``models/convert.py``).  On the ``meta`` device a model is built from
+:class:`MetaGenerator`, which draws nothing: shapes only.
+
+A model whose parameters are DTensors (sharded over a mesh,
+``distributed/shardings.py``) computes on DTensors throughout: a tensor
+the model makes itself (positions, RoPE tables, masks, zeros) is made
+whole and passed through :func:`on_mesh`, which replicates it on the mesh
+of the DTensor it meets; :func:`split_dim`, :func:`merge_dim` and
+:func:`on_shards` keep heads whole where DTensor cannot cut them.
 """
 from __future__ import annotations
 
@@ -16,6 +24,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +119,141 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
     return out.to(dt)
 
 
+def on_mesh(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, made whole on every rank, as a replicated DTensor on the mesh
+    of ``like`` where ``like`` is a DTensor and ``t`` is not; else ``t``."""
+    if isinstance(like, DTensor) and not isinstance(t, DTensor):
+        mesh = like.device_mesh
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return t
+
+
+def whole_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A DTensor with dim ``dim`` gathered on every rank; a plain tensor as
+    it is.  The embedding takes the vocabulary whole (DTensor's
+    masked-partial gather over a sharded vocabulary fails on torch 2.13's
+    CPU backend), an SSM's time loop the time dim (one gather, not one a
+    step)."""
+    if not isinstance(t, DTensor):
+        return t
+    dim %= t.ndim
+    pl = [Replicate() if isinstance(p, Shard) and p.dim % t.ndim == dim
+          else p for p in t.placements]
+    return t.redistribute(t.device_mesh, pl)
+
+
+def _cuts_heads(t: torch.Tensor, n: int) -> bool:
+    """Whether some mesh dim of the DTensor ``t`` has more ranks than ``n``
+    heads divide (8 KV heads over a model axis of 16, 24 over 16)."""
+    return isinstance(t, DTensor) and \
+        any(n % t.device_mesh.size(i) for i in range(t.device_mesh.ndim))
+
+
+def split_dim(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``t`` with dim ``dim`` viewed as (n, size / n), e.g. a projection's
+    width as (heads, head dim).  Where a mesh dim could cut the ``n`` heads
+    unevenly (:func:`_cuts_heads`) the DTensor's dim is gathered before the
+    view and the heads after it (a no-op forward; in the backward the
+    gradient is gathered before the view's reverse): DTensor will not view
+    a shard that splits a head."""
+    d = dim % t.ndim
+    uneven = _cuts_heads(t, n)
+    if uneven:
+        t = whole_dim(t, d)
+    out = t.reshape(*t.shape[:d], n, t.shape[d] // n, *t.shape[d + 1:])
+    return whole_dim(out, d) if uneven else out
+
+
+def merge_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` with dims ``dim`` and ``dim + 1`` (heads, head dim) viewed as
+    one, gathered around the view as :func:`split_dim` does where the
+    heads could be cut unevenly."""
+    d = dim % t.ndim
+    uneven = _cuts_heads(t, t.shape[d])
+    if uneven:
+        t = whole_dim(t, d)
+    out = t.reshape(*t.shape[:d], t.shape[d] * t.shape[d + 1],
+                    *t.shape[d + 2:])
+    return whole_dim(out, d) if uneven else out
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward hands on a contiguous gradient: the einsums'
+    gradients come back permuted, and DTensor views a shard's gradient as
+    if it were laid out as the whole."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_shards(fn, out_dims: tuple[int, int | None], *args):
+    """``fn(*tensors)`` for work that is independent per (batch, head), such
+    as attention, run on each rank's local shards where the first tensor
+    is a DTensor.  ``args`` are (tensor, batch dim, head dim or None); the
+    mesh dims that cut the first tensor's batch cut every tensor's batch,
+    those that cut its heads (dividing every tensor's heads) cut their
+    heads, and every other mesh dim replicates; ``out_dims`` are the result's
+    (batch dim, head dim).  A tensor without heads (a mask, a shared key)
+    is whole on each head shard, so its gradient there is a pending sum.
+    DTensor's own propagation of these einsums refuses to flatten a
+    sharded dim in torch 2.11."""
+    lead, lb, lh = args[0]
+    tensors = [a[0] for a in args]
+    if not isinstance(lead, DTensor):
+        return fn(*tensors)
+    mesh = lead.device_mesh
+    plan = []
+    for i, p in enumerate(lead.placements):
+        if isinstance(p, Shard) and p.dim == lb:
+            plan.append("batch")
+        elif isinstance(p, Shard) and p.dim == lh and all(
+                t.shape[h] % mesh.size(i) == 0 for t, _, h in args
+                if h is not None):
+            plan.append("head")
+        else:
+            plan.append(None)
+
+    def pl(b, h, grad=False):
+        return [Shard(b) if k == "batch" else
+                Shard(h) if k == "head" and h is not None else
+                Partial() if k == "head" and grad else Replicate()
+                for k in plan]
+
+    def local(*ts):
+        return fn(*(_ContiguousGrad.apply(t) if t.requires_grad else t
+                    for t in ts)).contiguous()
+
+    return local_map(
+        local, out_placements=pl(*out_dims),
+        in_placements=tuple(pl(b, h) for _, b, h in args),
+        in_grad_placements=tuple(pl(b, h, True) for _, b, h in args),
+        device_mesh=mesh, redistribute_inputs=True)(*tensors)
+
+
+def placed_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``t`` redistributed to ``like``'s shards (replicated where
+    ``like`` holds a pending sum); else ``t``."""
+    if not (isinstance(t, DTensor) and isinstance(like, DTensor)):
+        return t
+    pl = tuple(p if isinstance(p, (Shard, Replicate)) else Replicate()
+               for p in like.placements)
+    return t if tuple(t.placements) == pl else \
+        t.redistribute(like.device_mesh, pl)
+
+
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device: weights
+    made from it have shapes and dtypes and no values (the counterpart of
+    ``jax.eval_shape(model.init)``)."""
+    device = torch.device("meta")
+
+
 def rope_freqs(head_dim: int, theta: float,
                device: torch.device | str | None = None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -143,7 +289,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     if x.device.type == "cpu":
         warm_cpu_math()
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                 # (D/2,)
+    freqs = on_mesh(rope_freqs(d, theta, x.device), positions)   # (D/2,)
     ang = positions.float()[..., None] * freqs             # (..., S, D/2)
     cos = torch.cos(ang)[..., None, :]                     # (..., S, 1, D/2)
     sin = torch.sin(ang)[..., None, :]
@@ -164,7 +310,10 @@ def glu_act(x_gate: torch.Tensor, x_up: torch.Tensor, kind: str
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
                scale: float | None = None) -> torch.Tensor:
     """Normal weights of std ``scale`` (default fan_in^-1/2, fan_in the
-    first dimension), drawn in float32 on the generator's device."""
+    first dimension), drawn in float32 on the generator's device (empty
+    from a :class:`MetaGenerator`)."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
@@ -176,12 +325,32 @@ def softmax_cross_entropy(logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
     """logits (B, S, V) any float dtype; labels (B, S) integer -> the mean
     nats over (B, S), in float32.  The max is taken out of the gradient, as
-    the reference's ``stop_gradient``."""
+    the reference's ``stop_gradient``.
+
+    On a DTensor the gold logit is read without a gather: the labels are
+    compared with a vocabulary index placed as the logits' vocabulary dim,
+    and the masked sum over a vocabulary cut over ``model`` stays pending
+    there, so no rank holds the whole vocabulary's logits or their
+    gradient."""
     logits = logits.float()
     shifted = logits - logits.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    gold = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
+    if isinstance(shifted, DTensor):
+        gold = (shifted * (labels[..., None] == _index_like(shifted, -1))
+                ).sum(-1)
+    else:
+        gold = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
     return (lse - gold).mean()
+
+
+def _index_like(t: DTensor, dim: int) -> DTensor:
+    """``arange(t.shape[dim])`` as a DTensor cut as ``t``'s dim ``dim``
+    (each rank makes its own shard; no collective)."""
+    dim %= t.ndim
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim % t.ndim == dim
+          else Replicate() for p in t.placements]
+    return distribute_tensor(torch.arange(t.shape[dim], device=t.device),
+                             t.device_mesh, pl, src_data_rank=None)
 
 
 def param_dict(p: dict[str, torch.Tensor]) -> nn.ParameterDict:

@@ -3,7 +3,8 @@ and RWKV6 "Finch".
 
 Both are O(S) in sequence length with an O(1) decode state.  The
 reference runs the recurrence under ``jax.lax.scan`` over time; here it is
-a Python loop over the time steps in plain PyTorch (the reference has no
+a Python loop over the time steps in plain PyTorch (:func:`scan`; the
+reference has no
 Pallas kernel for it, so the port owes no CUDA kernel).  Decode is the same
 forward on one token from the carried state.
 
@@ -17,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ArchConfig, dense_init, param_dict
+from .common import (ArchConfig, dense_init, merge_dim, on_mesh, on_shards,
+                     param_dict, split_dim, whole_dim)
 
 F32 = torch.float32
 
@@ -50,14 +52,24 @@ def init_mamba2(cfg: ArchConfig, gen: torch.Generator,
         "w_out": dense_init(gen, (d_inner, d), dtype)})
 
 
+def scan(step, carry, n: int):
+    """``carry, y_i = step(i, carry)`` for i in 0..n-1 -> (the last carry,
+    [y_0, ..., y_{n-1}]): a time loop, as the reference's ``lax.scan``."""
+    ys = []
+    for i in range(n):
+        carry, y = step(i, carry)
+        ys.append(y)
+    return carry, ys
+
+
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                            state: torch.Tensor | None = None):
     """x (B, S, C); w (K, C) depthwise causal; state (B, K-1, C) carry-in.
     -> (silu(conv + b), the last K-1 inputs as the next state)."""
     k = w.shape[0]
     if state is None:
-        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
-                          device=x.device)
+        pad = on_mesh(torch.zeros((x.shape[0], k - 1, x.shape[2]),
+                                  dtype=x.dtype, device=x.device), x)
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
@@ -90,7 +102,7 @@ def mamba2_forward(p, cfg: ArchConfig, x: torch.Tensor,
     z, xbc, dt = _m2_split(cfg, x @ p["w_in"])
     xbc, conv_out = _causal_depthwise_conv(xbc, p["conv_w"], p["conv_b"],
                                            conv_state)
-    xs = xbc[..., :d_inner].reshape(b, s, heads, hd)
+    xs = split_dim(xbc[..., :d_inner], 2, heads)             # (B,S,H,hd)
     bmat = xbc[..., d_inner:d_inner + n].float()             # (B,S,N)
     cmat = xbc[..., d_inner + n:].float()                    # (B,S,N)
     dt = F.softplus(dt.float() + p["dt_bias"])               # (B,S,H)
@@ -99,16 +111,26 @@ def mamba2_forward(p, cfg: ArchConfig, x: torch.Tensor,
     dtx = dt[..., None] * xs.float()                         # (B,S,H,hd)
 
     h = ssm_state if ssm_state is not None else \
-        torch.zeros((b, heads, hd, n), dtype=F32, device=x.device)
-    ys = []
-    for i in range(s):
+        on_mesh(torch.zeros((b, heads, hd, n), dtype=F32, device=x.device), x)
+    decay, dtx, bmat, cmat = (whole_dim(t, 1) for t in (decay, dtx, bmat,
+                                                        cmat))
+
+    def step(i, h):
         h = h * decay[:, i, :, None, None] + \
             dtx[:, i, :, :, None] * bmat[:, i, None, None, :]
-        ys.append(torch.einsum("bhdn,bn->bhd", h, cmat[:, i]))
+        return h, on_shards(_read_state, (0, 1), (h, 0, 1),
+                            (cmat[:, i], 0, None))
+
+    h, ys = scan(step, h, s)
     y = torch.stack(ys, dim=1)                               # (B,S,H,hd)
     y = y + p["d_skip"][None, None, :, None] * xs.float()
-    y = (y.reshape(b, s, d_inner) * F.silu(z.float())).to(x.dtype)
+    y = (merge_dim(y, 2) * F.silu(z.float())).to(x.dtype)
     return y @ p["w_out"], (conv_out, h)
+
+
+def _read_state(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """y_t = h_t c_t: (B,H,hd,N) x (B,N) -> (B,H,hd)."""
+    return torch.einsum("bhdn,bn->bhd", h, c)
 
 
 def init_mamba2_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
@@ -188,29 +210,40 @@ def rwkv6_forward(p, cfg: ArchConfig, x: torch.Tensor, state=None):
     b, s, d = x.shape
     heads, hd = d // _RWKV_HD, _RWKV_HD
     if state is None:
-        x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
-        wkv = torch.zeros((b, heads, hd, hd), dtype=F32, device=x.device)
+        x_prev = on_mesh(torch.zeros((b, d), dtype=x.dtype, device=x.device),
+                         x)
+        wkv = on_mesh(torch.zeros((b, heads, hd, hd), dtype=F32,
+                                  device=x.device), x)
     else:
         x_prev, wkv = state
     r, k, v, g, w, x_last = _rwkv_streams(p, x, x_prev)
-    rh = r.reshape(b, s, heads, hd).float()
-    kh = k.reshape(b, s, heads, hd).float()
-    vh = v.reshape(b, s, heads, hd).float()
-    wh = w.reshape(b, s, heads, hd)
+    rh = split_dim(r, 2, heads).float()                      # (B,S,H,hd)
+    kh = split_dim(k, 2, heads).float()
+    vh = split_dim(v, 2, heads).float()
+    wh = split_dim(w, 2, heads)
     u = p["u"][None, :, :, None]
-    ys = []
-    for i in range(s):
-        kv = kh[:, i, :, :, None] * vh[:, i, :, None, :]    # (B,H,hd,hd)
-        ys.append(torch.einsum("bhk,bhkv->bhv", rh[:, i], wkv + u * kv))
-        wkv = wh[:, i, :, :, None] * wkv + kv
+    rh, kh, vh, wh = (whole_dim(t, 1) for t in (rh, kh, vh, wh))
+
+    def step(i, wkv):
+        kv = kh[:, i, :, :, None] * vh[:, i, :, None, :]        # (B,H,hd,hd)
+        y = on_shards(_read_wkv, (0, 1), (rh[:, i], 0, 1),
+                      (wkv + u * kv, 0, 1))
+        return wh[:, i, :, :, None] * wkv + kv, y
+
+    wkv, ys = scan(step, wkv, s)
     y = torch.stack(ys, dim=1)                               # (B,S,H,hd)
     # group norm per head (population variance, as jnp.var), then the gate
     mean = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
-    y = ((y - mean) * torch.rsqrt(var + 1e-5)).reshape(b, s, d) * \
+    y = merge_dim((y - mean) * torch.rsqrt(var + 1e-5), 2) * \
         p["ln_scale"]
     y = (y * F.silu(g.float())).to(x.dtype)
     return y @ p["wo"], (x_last, wkv)
+
+
+def _read_wkv(r: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """y_t = r_t (wkv + u k_t v_t): (B,H,hd) x (B,H,hd,hd) -> (B,H,hd)."""
+    return torch.einsum("bhk,bhkv->bhv", r, s)
 
 
 def init_rwkv_ffn(cfg: ArchConfig, gen: torch.Generator,
@@ -231,7 +264,8 @@ def rwkv_ffn_forward(p, cfg: ArchConfig, x: torch.Tensor,
     last token)."""
     b, _, d = x.shape
     if x_prev is None:
-        x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+        x_prev = on_mesh(torch.zeros((b, d), dtype=x.dtype, device=x.device),
+                         x)
     shifted = _shift(x, x_prev)
     xk = x + (shifted - x) * p["mu_k"]
     xr = x + (shifted - x) * p["mu_r"]

@@ -13,10 +13,24 @@ embedding scale and the ``vision_patches`` prefix stub are ported, and
 so are the training loss and remat: under ``remat="full"`` each layer of
 ``layers`` runs through ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` of its scan body), the hybrid's ``shared`` block not, as
-it sits outside the reference's scan.  The sharding hook is not ported.
+it sits outside the reference's scan.
+
+The sharding hook ``constrain(x, kind)`` is called where the reference
+calls it: the embedding (``"activation"``), each attention, MLP, MoE and
+Mamba2 output before it joins the residual stream (``"residual"``) and the
+training forward's logits (``"logits"``).  The port also calls it on
+RWKV6's two mixer outputs and on every residual addition of prefill and
+decode, where the reference leaves the placement to GSPMD: DTensor would
+carry the row-parallel product's pending sum through the norm into the
+next product, and, weighing communication alone, gather that product's
+weight and repeat it on every ``model`` rank.  With parameters made DTensors
+(``distributed/shardings.distribute_model``) the model runs sharded over
+their mesh; ``shardings.make_constrain`` gives the hook.  ``device="meta"``
+builds the model without values (``common.MetaGenerator``).
 
 Model API:
-  Model(cfg, device=None, dtype=torch.bfloat16, generator=None, ...)
+  Model(cfg, device=None, dtype=torch.bfloat16, generator=None, ...,
+        constrain=None)
   forward(tokens, extra=None)          -> logits (B, S, padded vocab)
   forward_aux(tokens, extra=None)      -> (logits, {"lb_loss", "drop_frac"})
   loss(tokens, labels, extra=None)     -> (total, {"lb_loss", "drop_frac",
@@ -31,6 +45,7 @@ trainer turns them on (``model.requires_grad_(True)``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from torch.utils.checkpoint import checkpoint
@@ -38,8 +53,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.table import resolve_device
 from . import attention as A
 from . import ssm as S
-from .common import (ArchConfig, dense_init, glu_act, rms_norm,
-                     softmax_cross_entropy)
+from .common import (ArchConfig, MetaGenerator, dense_init, glu_act,
+                     on_mesh, rms_norm, softmax_cross_entropy, whole_dim)
 from .moe import init_moe, moe_forward
 
 F32 = torch.float32
@@ -91,9 +106,16 @@ class GLU(nn.Module):
         return glu_act(x @ self.w_gate, x @ self.w_up, self.act) @ self.w_down
 
 
+def _identity(x: torch.Tensor, kind: str) -> torch.Tensor:
+    return x
+
+
 class _Block(nn.Module):
     """A pre-norm block.  ``forward`` -> (x, (lb_loss, drop_frac) or None);
-    ``step`` runs one layer of prefill or decode against its cache."""
+    ``step`` runs one layer of prefill or decode against its cache.
+    ``constrain`` is the model's sharding hook (set by ``Model``)."""
+
+    constrain = staticmethod(_identity)
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
@@ -124,16 +146,18 @@ class AttnBlock(_Block):
                n_prefix: int, use_flash_kernel: bool) -> torch.Tensor:
         """The residual stream after the attention."""
         attn = A.mla_forward if self.cfg.use_mla else A.gqa_forward
-        return x + attn(self.attn, self.cfg, self._norm(x, self.ln1),
-                        positions, n_prefix, use_flash_kernel)
+        return x + self.constrain(
+            attn(self.attn, self.cfg, self._norm(x, self.ln1), positions,
+                 n_prefix, use_flash_kernel), "residual")
 
     def _ffn(self, x: torch.Tensor, capacity_factor: float):
         y = self._norm(x, self.ln2)
         if self.kind == "dense":
-            return x + self.mlp(y), None
+            return x + self.constrain(self.mlp(y), "residual"), None
         out, aux = moe_forward(self.moe, self.cfg, y,
                                self.moe["router"].shape[1], capacity_factor)
-        return x + out, (aux["lb_loss"], aux["drop_frac"])
+        return x + self.constrain(out, "residual"), \
+            (aux["lb_loss"], aux["drop_frac"])
 
     def forward(self, x, positions, n_prefix, use_flash_kernel,
                 capacity_factor):
@@ -153,7 +177,8 @@ class AttnBlock(_Block):
                         if decode else
                         A.gqa_prefill(self.attn, self.cfg, y, positions,
                                       cache, n_prefix))
-        return self._ffn(x + h, capacity_factor)[0], cache
+        return self._ffn(x + self.constrain(h, "residual"),
+                         capacity_factor)[0], cache
 
     def init_cache(self, batch, max_len, dtype, device):
         init = A.init_mla_cache if self.cfg.use_mla else A.init_kv_cache
@@ -172,7 +197,7 @@ class Mamba2Block(_Block):
     def forward(self, x, positions, n_prefix, use_flash_kernel,
                 capacity_factor):
         y, _ = S.mamba2_forward(self.mixer, self.cfg, self._norm(x, self.ln))
-        return x + y, None
+        return x + self.constrain(y, "residual"), None
 
     def step(self, x, cache, pos, positions, n_prefix, decode,
              capacity_factor):
@@ -181,7 +206,7 @@ class Mamba2Block(_Block):
                     else S.mamba2_forward(self.mixer, self.cfg, y,
                                           conv_state=cache[0],
                                           ssm_state=cache[1]))
-        return x + y, state
+        return x + self.constrain(y, "residual"), state
 
     def init_cache(self, batch, max_len, dtype, device):
         return S.init_mamba2_state(self.cfg, batch, dtype, device)
@@ -208,11 +233,11 @@ class RWKV6Block(_Block):
         y, tm_state = (S.rwkv6_decode(self.tm, self.cfg, y, tm_state)
                        if decode else
                        S.rwkv6_forward(self.tm, self.cfg, y, state=tm_state))
-        x = x + y
+        x = x + self.constrain(y, "residual")
         y, ffn_prev = S.rwkv_ffn_forward(self.ffn, self.cfg,
                                          self._norm(x, self.ln2),
                                          x_prev=ffn_prev)
-        return x + y, (tm_state, ffn_prev)
+        return x + self.constrain(y, "residual"), (tm_state, ffn_prev)
 
     def forward(self, x, positions, n_prefix, use_flash_kernel,
                 capacity_factor):
@@ -245,18 +270,21 @@ class Model(nn.Module):
     the experts' capacity, and ``remat`` (``"none"`` or ``"full"``)
     recomputes each layer in the backward pass, as the reference's
     arguments of those names.  Parameters the reference creates in float32
-    (the SSMs' decays and skips) stay float32 in a bf16 model."""
+    (the SSMs' decays and skips) stay float32 in a bf16 model.
+    ``constrain`` is the sharding hook (identity when None); on
+    ``device="meta"`` the model has shapes only."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  dtype: torch.dtype = torch.bfloat16,
                  generator: torch.Generator | None = None,
                  vocab_pad: int = 1, use_flash_kernel: bool = False,
                  expert_pad: int = 16, capacity_factor: float = 1.25,
-                 remat: str = "none"):
+                 remat: str = "none", constrain=None):
         super().__init__()
         dev = resolve_device(device)
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+            generator = MetaGenerator() if dev.type == "meta" else \
+                torch.Generator(device=dev).manual_seed(0)
         if generator.device.type != dev.type:
             raise ValueError(f"generator on {generator.device}, model on {dev}")
         if remat not in ("none", "full"):
@@ -282,6 +310,10 @@ class Model(nn.Module):
         self.shared_after = tuple(ends[:-1]) if cfg.shared_attn_every else ()
         self.shared = _block("dense", cfg, gen, dtype, 0) \
             if cfg.shared_attn_every else None
+        self.constrain = constrain or _identity
+        for block in (*self.layers, self.shared):
+            if block is not None:
+                block.constrain = self.constrain
 
     # -- helpers -------------------------------------------------------------
     @property
@@ -306,7 +338,8 @@ class Model(nn.Module):
         if self.padded_vocab == self.cfg.vocab:
             return logits
         iota = torch.arange(self.padded_vocab, device=logits.device)
-        return logits.masked_fill(iota >= self.cfg.vocab, -1e30)
+        return logits.masked_fill(on_mesh(iota >= self.cfg.vocab, logits),
+                                  -1e30)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps, self.cfg.norms_f32)
@@ -314,7 +347,10 @@ class Model(nn.Module):
         return self._mask_vocab_pad(x @ head)
 
     def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens.to(self.device)]
+        # the vocabulary gathered first: the backward of DTensor's
+        # vocab-parallel lookup (a masked pending sum) fails in torch 2.11
+        x = F.embedding(on_mesh(tokens.to(self.device), self.embed),
+                        whole_dim(self.embed, 0))
         if self.cfg.embed_scale:       # the scale rounded to x's dtype first
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
@@ -325,14 +361,15 @@ class Model(nn.Module):
         x = self._embed_tokens(tokens)
         n_prefix = 0
         if self.cfg.frontend == "vision_patches":
-            patches = extra["patches"].to(device=x.device, dtype=x.dtype)
+            patches = on_mesh(extra["patches"].to(device=x.device,
+                                                  dtype=x.dtype), x)
             x = torch.cat([patches, x], dim=1)        # stub frontend
             n_prefix = patches.shape[1]
-        return x, n_prefix
+        return self.constrain(x, "activation"), n_prefix
 
     @staticmethod
-    def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
-        return torch.arange(s, device=device).expand(b, s)
+    def _positions(b: int, s: int, x: torch.Tensor) -> torch.Tensor:
+        return on_mesh(torch.arange(s, device=x.device).expand(b, s), x)
 
     # -- forward -------------------------------------------------------------
     def forward(self, tokens: torch.Tensor, extra: dict | None = None
@@ -346,7 +383,7 @@ class Model(nn.Module):
         zeros where there are none)."""
         x, n_prefix = self._embed(tokens, extra)
         b, s, _ = x.shape
-        positions = self._positions(b, s, x.device)
+        positions = self._positions(b, s, x)
         lb = torch.zeros((), dtype=F32, device=x.device)
         drop = torch.zeros((), dtype=F32, device=x.device)
         args = (positions, n_prefix, self.use_flash_kernel,
@@ -361,7 +398,8 @@ class Model(nn.Module):
                 lb, drop = lb + aux[0], drop + aux[1]
             if i in self.shared_after:
                 x, _ = self.shared(x, *args)
-        return self._head(x), {"lb_loss": lb, "drop_frac": drop}
+        return self.constrain(self._head(x), "logits"), \
+            {"lb_loss": lb, "drop_frac": drop}
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
              extra: dict | None = None):
@@ -393,10 +431,9 @@ class Model(nn.Module):
     def _with_cache(self, x, cache, pos, positions, n_prefix, decode):
         new = {"layers": [], "shared": []}
         shared = iter(cache["shared"])
-        for i, (layer, layer_cache) in enumerate(zip(self.layers,
-                                                     cache["layers"])):
-            x, c = layer.step(x, layer_cache, pos, positions, n_prefix,
-                              decode, self.capacity_factor)
+        for i, layer in enumerate(self.layers):
+            x, c = layer.step(x, cache["layers"][i], pos, positions,
+                              n_prefix, decode, self.capacity_factor)
             new["layers"].append(c)
             if i in self.shared_after:
                 x, c = self.shared.step(x, next(shared), pos, positions,
@@ -410,7 +447,7 @@ class Model(nn.Module):
         """Run the prompt, fill the cache -> (logits (B, 1, V), cache)."""
         x, n_prefix = self._embed(tokens, extra)
         b, s, _ = x.shape
-        x, cache = self._with_cache(x, cache, 0, self._positions(b, s, x.device),
+        x, cache = self._with_cache(x, cache, 0, self._positions(b, s, x),
                                     n_prefix, decode=False)
         return self._head(x[:, -1:]), cache
 

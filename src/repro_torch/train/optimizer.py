@@ -14,8 +14,10 @@ This is not ``torch.optim.AdamW``, which keeps ``m`` and ``v`` in the
 parameter's dtype, scales the weights before the step rather than adding
 the decay to the step's direction, decays every leaf and has no global
 clip: each of those gives another result.  The reference shards the state
-as its parameters (ZeRO over FSDP and TP); the port runs on one card and
-keeps it whole.
+as its parameters (ZeRO over FSDP and TP); so does the port where the
+parameters are DTensors: ``m`` and ``v`` take each parameter's placements
+(``zeros_like``), and the global norm sums every leaf's local squares and
+reduces them over the mesh (DTensor's pending sum).
 
 Gradient compression models what a data-parallel all-reduce would carry:
 bf16, or int8 per tensor with error feedback (the residual makes it
@@ -28,6 +30,7 @@ import math
 from typing import Collection
 
 import torch
+from torch.distributed.tensor import DTensor
 
 F32 = torch.float32
 
@@ -59,14 +62,14 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def _zeros(params: Tree) -> Tree:
-    return {k: torch.zeros(p.shape, dtype=F32, device=p.device)
-            for k, p in params.items()}
+    """float32 zeros in each parameter's shape and placements."""
+    return {k: torch.zeros_like(p, dtype=F32) for k, p in params.items()}
 
 
 def init_state(params: Tree) -> dict:
     """{"step": 0 (int32), "m": zeros, "v": zeros}, on the parameters'
     device."""
-    dev = next(iter(params.values())).device
+    dev = next(iter(params.values())).device       # a DTensor's local one
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
             "m": _zeros(params), "v": _zeros(params)}
 
@@ -83,7 +86,7 @@ def apply_update(cfg: AdamWConfig, params: Tree, grads: Tree, state: dict,
     step = state["step"] + 1
     stepf = step.to(F32)
     lr = lr_schedule(cfg, stepf)
-    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+    gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     bc1 = 1 - cfg.b1 ** stepf
@@ -99,6 +102,15 @@ def apply_update(cfg: AdamWConfig, params: Tree, grads: Tree, state: dict,
         p.copy_(p.float() - lr * delta)     # rounded to p's dtype
     state["step"] = step
     return {"grad_norm": gnorm, "lr": lr}
+
+
+def global_norm(grads: Tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32; over DTensor
+    leaves a plain scalar tensor, the same on every rank."""
+    total = sum(g.float().square().sum() for g in grads.values())
+    if isinstance(total, DTensor):
+        total = total.full_tensor()
+    return torch.sqrt(total)
 
 
 # ---------------------------------------------------------------------------

@@ -17,10 +17,18 @@ each segment's layers stacked on a leading axis.  Its weight decay falls
 on the leaves of two or more dimensions there (:func:`weight_decayed`),
 and int8_ef's per-tensor scale spans one stacked leaf
 (:func:`reference_leaves`); the port decays and scales the same.
+
+Under a mesh (the parameters DTensors, ``distributed/shardings.py``) the
+batch comes sharded by ``shardings.batch_specs``; each gradient is
+redistributed to its parameter's placements (a pending sum becomes its
+reduce-scatter or all-reduce) and the optimizer state takes the
+parameters' placements, as the reference's ``s_specs`` mirror its
+parameter specs.  The metrics come back as plain tensors.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.transformer import Model, segments
 from . import optimizer as opt
@@ -73,8 +81,21 @@ def loss_and_grads(model: Model, batch: dict):
                             extra=_extra(batch, ("tokens", "labels")))
     names, leaves = zip(*model.named_parameters())
     grads = torch.autograd.grad(total, leaves, materialize_grads=True)
+    grads = [_placed_like(g, p) for g, p in zip(grads, leaves)]
     return (total.detach(), {k: v.detach() for k, v in aux.items()},
             dict(zip(names, grads)))
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient redistributed to its parameter's placements."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor's whole value)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def make_train_step(model: Model, ocfg: opt.AdamWConfig,
@@ -103,7 +124,7 @@ def make_train_step(model: Model, ocfg: opt.AdamWConfig,
         else:
             m = microbatches
             dev = model.device
-            grads = {k: torch.zeros(p.shape, dtype=F32, device=p.device)
+            grads = {k: torch.zeros_like(p, dtype=F32)
                      for k, p in params.items()}
             loss = torch.zeros((), dtype=F32, device=dev)
             aux = {k: torch.zeros((), dtype=F32, device=dev)
@@ -127,7 +148,8 @@ def make_train_step(model: Model, ocfg: opt.AdamWConfig,
             om = opt.apply_update(ocfg, params, grads, state["opt"], decay)
         except Exception as e:
             raise UpdateFailed(f"the in-place update failed: {e}") from e
-        return {"loss": loss.float(), **aux, **om}
+        metrics = {"loss": loss.float(), **aux, **om}
+        return {k: _plain(v) for k, v in metrics.items()}
 
     return step
 

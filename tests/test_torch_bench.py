@@ -312,7 +312,7 @@ def test_run_without_cuda_raises(monkeypatch):
 
 def test_run_refuses_an_unknown_bench():
     with pytest.raises(SystemExit):
-        run.main(["--device", "cpu", "bench_roofline"])
+        run.main(["--device", "cpu", "bench_unknown"])
 
 
 def test_run_drives_the_ir_only_benches(tmp_path, capsys):

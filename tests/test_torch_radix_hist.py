@@ -139,10 +139,16 @@ def test_murmur32_is_shared_by_both_kernels():
 
 def test_cuda_wrappers_refuse_oversized_parts():
     """The kernels' shared memory bounds parts; a wrapper says so before it
-    touches a device."""
+    touches a device.  On ``meta`` the counting rank gives its shapes alone
+    (the custom op's fake implementation, which the LM dry-run runs), under
+    the kernel's bounds."""
     meta = torch.empty(10, dtype=torch.int32, device="meta")
+    slot, counts = P.counting_rank(meta, 9)
+    assert (slot.device.type, tuple(slot.shape), slot.dtype) == \
+        ("meta", (10,), torch.int32)
+    assert (tuple(counts.shape), counts.dtype) == ((9,), torch.int32)
     with pytest.raises(ValueError, match="unsupported device"):
-        P.counting_rank(meta, 9)
+        P.radix_hist(meta, 9)
     with pytest.raises(ValueError, match="parts must be in"):
         P.counting_rank(meta, P.COUNTING_RANK_PARTS_MAX + 1)
     with pytest.raises(ValueError, match="parts must be in"):

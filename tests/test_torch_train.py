@@ -552,10 +552,15 @@ def test_trainer_retries_only_before_the_update(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--multi-pod"],
-                                  ["--seq-parallel"]])
+                                  ["--seq-parallel", "--tp", "2"]])
 def test_trainer_refuses_sharded_meshes(flag):
-    with pytest.raises(NotImplementedError, match="shardings"):
+    """A mesh the launched world cannot hold (one process here: data x
+    model 2, or two pods) is refused before any process group is made; the
+    sharded trainer itself runs in ``test_torch_sharded.py``."""
+    import torch.distributed as dist
+    with pytest.raises(ValueError, match="does not split"):
         train_cli.main(_SMOKE + flag)
+    assert not dist.is_initialized()
 
 
 def test_trainer_default_device_is_cuda_and_raises_without_it():
