@@ -208,6 +208,22 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  Phases:
      decode_32k 2x16x16 and rwkv6_3b long_500k 16x16 on a fake group, then
      ``bench_roofline`` over them (host seconds a cell; the subprocess
      never initialises CUDA).
+  15. (after 14) the distributed engine across processes, each started by
+     ``python -m torch.distributed.run``, its results held to phase 4's
+     reference (passed in a file): (a) one process per card (the world
+     is ``torch.cuda.device_count()``) over NCCL, a ``TorchDistGroup``
+     from ``comm.world_group``: every collective of the exchange on every
+     wire dtype against the host's combination, then all 22 queries at SF
+     1 under both join methods through ``QueryRunner`` on the group, each
+     equal to the reference in one attempt with the plans' static exchange
+     counts, the median of 3 warm runs per query, launch counters reset
+     just before and read just after (every counting rank by the
+     single-pass kernel); (b) four processes on cuda:0 over gloo (NCCL
+     refuses two ranks on one card; gloo's send and receive go through the
+     host, ``TorchDistGroup.staged``): the collectives on the world and on
+     the 3 survivors of rank 3, then Q5, Q9 and Q18 with rank 3 lost at
+     the first exchange: its process ends in ``DeviceLost``, the others
+     shrink to a process group of 3 and answer equal to the reference.
 
 It prints the card line and a ``{"kernels": [...]}`` line before the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -3057,6 +3073,276 @@ def run_sharded(dev, card: str) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the distributed engine across processes, one rank per process
+# ---------------------------------------------------------------------------
+
+_PROC_WORKER = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+sys.exit(chip_smoke.proc_worker(sys.argv[2], sys.argv[3]))
+"""
+
+
+def proc_inputs(rank: int, size: int):
+    """Rank ``rank``'s input to each collective of 15's check, by the wire's
+    dtypes: uint32 values held in int64, int32, float64, bool; (size, 3)."""
+    import torch
+    x = torch.arange(size * 3, dtype=torch.int64).reshape(size, 3) * 7 + \
+        rank * 1000 + 3
+    return {"u32": x * 1299709 % (1 << 32) | (1 << 31),
+            "i32": (x - 5000).to(torch.int32),
+            "f64": torch.sin(x.double()) * 1e6 + 0.1,
+            "bool": x % 3 == rank % 2}
+
+
+def check_collectives(group, label: str) -> None:
+    """Every collective the exchange uses, on every dtype the wire ships,
+    against what the group's inputs give when combined on the host (the
+    reductions in rank order, float sums bit for bit)."""
+    import torch
+    from repro_torch.core import comm
+    n, me = group.size, group.rank
+    ins = [proc_inputs(group.global_ranks[r], n) for r in range(n)]
+    ring = [(i, (i + 1) % n) for i in range(n)]
+    for name, x in ins[me].items():
+        xd = x.to(group.device)
+        xs = [i[name] for i in ins]
+        got = {"all_to_all": group.all_to_all(xd),
+               "all_gather": group.all_gather(xd),
+               "ppermute": group.ppermute(xd, ring)}
+        want = {"all_to_all": torch.stack([v[me] for v in xs]),
+                "all_gather": torch.stack(xs),
+                "ppermute": xs[(me - 1) % n]}
+        if name != "bool":
+            for op in comm.REDUCE_OPS:
+                got[op] = group.all_reduce(xd, op)
+                want[op] = comm._reduce(xs, op)
+        for k, w in want.items():
+            g = got[k]
+            if g.device != group.device or g.dtype != w.dtype or \
+                    not torch.equal(g.cpu(), w):
+                raise AssertionError(f"{label} rank {me}: {k} of {name} "
+                                     f"differs")
+
+
+def wait_for(path: Path, what: str, timeout: float = 240.0) -> None:
+    """Wait until ``path`` exists (the other launch's signal)."""
+    deadline = time.perf_counter() + timeout
+    while not path.exists():
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"15: waited {timeout:.0f} s for {what}")
+        time.sleep(0.05)
+
+
+def proc_worker(mode: str, tmp: str) -> int:
+    """One process of 15(a) (``nccl``: one per card) or 15(b) (``gloo``:
+    four on cuda:0), started by ``torch.distributed.run``; both launches
+    start together.  Each sets up (world, SF 1, the collectives' check),
+    then (a) waits until (b) is set up and runs, and (b) waits until (a) is
+    done: neither's start-up falls in the other's measured work.  Rank 0
+    writes ``<tmp>/<mode>.json``."""
+    t_entry = time.time()
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels as K
+    from repro_torch.core import comm
+    from repro_torch.data import tpch
+    from repro_torch.distributed.chaos import (ChaosInjector, DeviceLost,
+                                               FaultPlan)
+    from repro_torch.distributed.fault import (QueryRunner, RetryPolicy,
+                                               surviving_group)
+    from repro_torch.queries import QUERIES
+    group = comm.world_group("cuda") if mode == "nccl" else \
+        comm.world_group("cuda:0", backend="gloo")
+    try:
+        refs: dict = {}
+        with np.load(Path(tmp) / "refs.npz") as z:
+            for k in z.files:
+                q, col = k.split("/", 1)
+                refs.setdefault(int(q), {})[col] = z[k]
+        db = tpch.generate(SF_MAIN, seed=SEED)
+        check_collectives(group, f"15 {mode} world")
+        if mode == "gloo":
+            if group.rank != 3:
+                check_collectives(surviving_group(group, (3,)),
+                                  "15b survivors")
+            group.all_reduce(torch.zeros(1, device=group.device))
+            if group.rank == 0:
+                (Path(tmp) / "gloo.ready").touch()
+            wait_for(Path(tmp) / "nccl.done", "15a to finish")
+        else:
+            wait_for(Path(tmp) / "gloo.ready", "15b to set up")
+        t_work = time.time()
+        out = {"world": group.size, "backend": group.backend,
+               "device": str(group.device), "staged": sorted(group.staged),
+               "name": torch.cuda.get_device_name(group.device)}
+        if mode == "nccl":
+            K.reset_launches()
+            medians = {}
+            for jm in ("sorted", "hash"):
+                for q in sorted(QUERIES):
+                    runner = QueryRunner(db, group, join_method=jm)
+                    label = f"15a world={group.size} q{q} join={jm}"
+                    res = runner.run(QUERIES[q])       # the first run uploads
+                    compare(res.result, refs[q], label)
+                    if res.attempts != 1 or \
+                            res.stats.counts() != QUERIES[q].static_counts():
+                        raise AssertionError(
+                            f"{label}: attempts {res.attempts}, exchanges "
+                            f"{res.stats.counts()} != static "
+                            f"{QUERIES[q].static_counts()}")
+                    walls = []
+                    for _ in range(REPS):
+                        s = time.perf_counter()
+                        runner.run(QUERIES[q])
+                        walls.append((time.perf_counter() - s) * 1e3)
+                    medians[f"{jm}/q{q}"] = statistics.median(walls)
+            out["median_ms"] = medians
+            out["launches"] = dict(K.launches)
+            group.all_reduce(torch.zeros(1, device=group.device))
+            if group.rank == 0:
+                (Path(tmp) / "nccl.done").touch()
+        else:
+            recovered = {}
+            for q in RECOVERY_QUERIES:
+                runner = QueryRunner(
+                    db, group, chaos=ChaosInjector(FaultPlan.device_loss(
+                        SEED, devices=(3,), cut="exchange")),
+                    policy=RetryPolicy(max_attempts=4, backoff_s=0.0))
+                label = f"15b q{q} device loss 4 -> 3"
+                try:
+                    res = runner.run(QUERIES[q])
+                except DeviceLost:
+                    if group.rank != 3:
+                        raise
+                    continue
+                if group.rank == 3:
+                    raise AssertionError(f"{label}: the lost process "
+                                         f"answered")
+                if res.report.outcomes() != ["device_lost", "ok"] or \
+                        (runner.devices, runner.topology_generation,
+                         runner.lost_devices) != (3, 1, (3,)):
+                    raise AssertionError(
+                        f"{label}: outcomes {res.report.outcomes()}, "
+                        f"devices {runner.devices}, lost "
+                        f"{runner.lost_devices}")
+                compare(res.result, refs[q], label)
+                recovered[q] = [round(a.wall_s * 1e3, 1)
+                                for a in res.report.attempts]
+            out["recovered_ms"] = recovered
+        out["times"] = {"entry": t_entry, "work": t_work, "end": time.time()}
+        if group.rank == 0:
+            with open(Path(tmp) / f"{mode}.json", "w") as f:
+                json.dump(out, f)
+    finally:
+        group.close()
+    return 0
+
+
+def start_procs(tmp: str, mode: str, n: int) -> subprocess.Popen:
+    """``python -m torch.distributed.run --nproc-per-node n`` of
+    :func:`proc_worker`."""
+    script = Path(tmp) / "proc_worker.py"
+    script.write_text(_PROC_WORKER)
+    # to files: the two launches run at once, and a full pipe nobody reads
+    # would stop one of them
+    with open(Path(tmp) / f"{mode}.log", "w") as log_file:
+        return subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(n), str(script), str(ROOT), mode, tmp],
+            cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+
+
+def finish_procs(proc: subprocess.Popen, tmp: str, mode: str,
+                 timeout: float) -> dict:
+    """The launch's rank-0 record; any process that failed fails the
+    phase."""
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        err = (Path(tmp) / f"{mode}.log").read_text()
+        raise AssertionError(f"15 {mode}: torch.distributed.run exited "
+                             f"{proc.returncode}: {err[-4000:]}")
+    with open(Path(tmp) / f"{mode}.json") as f:
+        out = json.load(f)
+    out["times"]["exit"] = time.time()
+    return out
+
+
+def run_processes(refs: dict, card: str) -> dict[str, int]:
+    """Phase 15: (a) all 22 queries at SF 1 under both joins through
+    ``QueryRunner`` on a ``TorchDistGroup`` over NCCL, one process per card;
+    (b) Q5, Q9, Q18 with a device loss 4 -> 3 across four processes that
+    share cuda:0 over gloo.  Returns the launch counts of (a)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.queries import QUERIES
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(Path(tmp) / "refs.npz", **{
+            f"{q}/{k}": v for q, r in refs.items() for k, v in r.items()})
+        t0 = time.time()
+        n = torch.cuda.device_count()
+        pa = start_procs(tmp, "nccl", n)
+        pb = start_procs(tmp, "gloo", 4)
+        try:
+            a = finish_procs(pa, tmp, "nccl", timeout=300)
+            b = finish_procs(pb, tmp, "gloo", timeout=300)
+        finally:
+            for p in (pa, pb):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    counts = a["launches"]
+    for jm in ("sorted", "hash"):
+        med = {q: a["median_ms"][f"{jm}/q{q}"] for q in sorted(QUERIES)}
+        log(f"15a SF {SF_MAIN} join={jm}, {a['world']} process(es) over "
+            f"{a['backend']} ({a['device']} on rank 0): per-query median of "
+            f"{REPS} through QueryRunner (ms) "
+            f"{json.dumps({q: round(v, 2) for q, v in med.items()})}, total "
+            f"{sum(med.values()):.1f} ms ({card})")
+    log(f"15a: world size {a['world']}: {n} card(s) on this host, one "
+        f"process each.  With one card this is NCCL's code path with one "
+        f"rank: no message crosses a link; NCCL across several cards has "
+        f"not run here")
+    log(f"15a: all 22 queries under both joins equal phase 4's reference in "
+        f"one attempt, exchange counts equal the static counts, every "
+        f"collective on every wire dtype as the host combines it; launches "
+        f"{json.dumps(counts)}")
+    if counts["counting_rank"] <= 0 or \
+            counts["counting_rank_onepass"] != counts["counting_rank"]:
+        raise AssertionError(f"15a: {counts['counting_rank_onepass']} of "
+                             f"{counts['counting_rank']} counting_rank calls "
+                             f"ran the single-pass kernel")
+    missing = [k for k in ("segsum_sum", "segsum_minmax", "hash_insert",
+                           "hash_probe64") if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"15a: kernels never launched: {missing}")
+    log(f"15b: 4 processes on {b['device']} over gloo (NCCL refuses two "
+        f"ranks on one card); collectives staged through the host: "
+        f"{b['staged'] or 'none'}; every collective on every wire dtype, on "
+        f"the world and on the 3 survivors, as the host combines it")
+    for q, walls in b["recovered_ms"].items():
+        log(f"15b SF {SF_MAIN} q{q} device loss 4 -> 3 across processes: "
+            f"rank 3's process ended in DeviceLost, the survivors shrank to "
+            f"a process group of 3 and answered equal to phase 4's "
+            f"reference; attempts {walls} ms on rank 0 ({card})")
+    for k, r in (("a", a), ("b", b)):
+        t = r["times"]
+        log(f"15{k} seconds: launch and imports {t['entry'] - t0:.1f}, "
+            f"set-up {t['work'] - t['entry']:.1f} (world, SF {SF_MAIN}, the "
+            f"collectives; (a) then waits for (b)'s), work "
+            f"{t['end'] - t['work']:.1f}, teardown {t['exit'] - t['end']:.1f}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3119,7 +3405,7 @@ def main() -> int:
     build_np = db10.tables["orders"]["o_orderkey"]
     planner.invalidate_stats(db10)
     planner.invalidate_stats(db1)       # their rungs and shards go too
-    del db10, results, db1, refs
+    del db10, results, db1            # phase 15 holds to phase 4's refs
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3144,6 +3430,10 @@ def main() -> int:
     shard_counts = run_sharded(dev, card)
     log(f"phase 14: {time.perf_counter() - t14:.1f} s; launches of the "
         f"sharded forward {json.dumps(shard_counts)}")
+    t15 = time.perf_counter()
+    proc_counts = run_processes(refs, card)
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s; launches on the "
+        f"process path {json.dumps(proc_counts)}")
     # each kernel's launches on the path that runs it: the local main path,
     # the distributed path (the counting rank), the skew statistics, the
     # 32-bit join probe, one forward of the LM path

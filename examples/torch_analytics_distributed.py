@@ -9,9 +9,17 @@ exchange stats.
     PYTHONPATH=src python examples/torch_analytics_distributed.py \
         [--sf 0.01] [--queries 3,9] [--device cpu]
 
+Under ``torchrun`` (``WORLD_SIZE`` set) every process is one rank on its
+own card, ``cuda:LOCAL_RANK``, over NCCL, or on the CPU over gloo with
+``--device cpu``; ``--ranks`` is then the world's size, and rank 0 prints:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 \
+        examples/torch_analytics_distributed.py --sf 1
+
 Runs on ``cuda`` unless ``--device`` names another device; without CUDA the
 default raises.
 """
+import os
 import argparse
 
 from repro_torch.core import comm
@@ -32,13 +40,23 @@ def main(argv=None, db=None) -> dict:
     ap.add_argument("--queries", type=str, default="")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ:          # torchrun: a rank per process
+        group = comm.world_group(args.device)
+    else:
+        group = comm.ThreadGroup(args.ranks, resolve_device(args.device))
+    try:
+        return _run(args, db, group)
+    finally:
+        if isinstance(group, comm.TorchDistGroup):
+            group.close()
 
+
+def _run(args, db, group) -> dict:
+    say = print if 0 in group.ranks else (lambda *a, **k: None)
     if db is None:
         db = tpch.generate(args.sf, seed=args.seed)
-    print(f"devices={args.ranks}  scale factor={db.scale} on {dev}")
-    runner = QueryRunner(db, group=comm.ThreadGroup(args.ranks, dev),
-                         capacity_factor=2.5)
+    say(f"devices={group.size}  scale factor={db.scale} on {group.device}")
+    runner = QueryRunner(db, group=group, capacity_factor=2.5)
 
     qids = ([int(q) for q in args.queries.split(",") if q]
             or sorted(QUERIES))
@@ -51,12 +69,12 @@ def main(argv=None, db=None) -> dict:
                     "rows": nrows, "shuffles": res.stats.shuffles,
                     "broadcasts": res.stats.broadcasts,
                     "attempts": res.attempts}
-        print(f"Q{qid:2d}  {res.wall_s * 1e3:9.1f} ms  rows={nrows:5d}  "
-              f"shuffles={res.stats.shuffles} "
-              f"broadcasts={res.stats.broadcasts} "
-              f"attempts={res.attempts}")
-    print(f"\nall {len(qids)} queries: {total:.2f} s "
-          f"(includes the first partition and upload)")
+        say(f"Q{qid:2d}  {res.wall_s * 1e3:9.1f} ms  rows={nrows:5d}  "
+            f"shuffles={res.stats.shuffles} "
+            f"broadcasts={res.stats.broadcasts} "
+            f"attempts={res.attempts}")
+    say(f"\nall {len(qids)} queries: {total:.2f} s "
+        f"(includes the first partition and upload)")
     return out
 
 

@@ -810,7 +810,7 @@ def hash_partition_np(key: np.ndarray, n: int) -> np.ndarray:
 
 
 def partition_database(db: Database, n: int,
-                       partition_keys: dict | None = None,
+                       partition_keys: dict | None = None, ranks=None,
                        ) -> tuple[dict[str, dict], dict[str, int]]:
     """Host-side partitioning -> per-table (stacked shards dict, per-shard cap).
 
@@ -819,6 +819,8 @@ def partition_database(db: Database, n: int,
     appear whole in every shard — the standard treatment for tiny dimension
     tables.  The per-shard capacity is a multiple of 8 over the largest
     shard, as in the reference, so every exchange is sized alike.
+    ``ranks`` fills only those ranks' rows (the others stay zero): a process
+    of a process group gathers only its own.
     """
     pk = dict(PARTITION_KEYS)
     if partition_keys:
@@ -827,20 +829,17 @@ def partition_database(db: Database, n: int,
     for name, t in db.tables.items():
         key = pk.get(name)
         if key is None:
-            nrows = len(next(iter(t.values())))
-            masks = [slice(None)] * n
-            counts = [nrows] * n
+            dest = None
+            counts = [len(next(iter(t.values())))] * n
         else:
             dest = hash_partition_np(np.asarray(t[key]), n)
-            masks = [dest == d for d in range(n)]
-            counts = [int(m.sum()) for m in masks]
+            counts = np.bincount(dest, minlength=n).tolist()
         cap = max(8, int(math.ceil(max(counts) / 8)) * 8)
-        cols = {}
-        for cname, v in t.items():
-            stacked = np.zeros((n * cap,), dtype=v.dtype)
-            for d, m in enumerate(masks):
-                stacked[d * cap: d * cap + counts[d]] = v[m]
-            cols[cname] = stacked
+        cols = {c: np.zeros((n * cap,), dtype=v.dtype) for c, v in t.items()}
+        for d in range(n) if ranks is None else ranks:
+            m = slice(None) if dest is None else dest == d
+            for c, v in t.items():
+                cols[c][d * cap: d * cap + counts[d]] = v[m]
         cols["__count"] = np.array(counts, dtype=np.int32)
         out[name] = cols
         caps[name] = cap
@@ -870,7 +869,7 @@ def device_shards(db: Database, device: torch.device, n: int,
         shared = device_shards(base, device, n, partition_keys, todo) \
             if base is not None else {}
         sharded, caps = partition_database(
-            Database(own, db.dicts, db.scale), n, partition_keys)
+            Database(own, db.dicts, db.scale), n, partition_keys, todo)
         for d in todo:
             mine = {}
             for name, cols in sharded.items():

@@ -24,8 +24,14 @@ Two implementations:
     in any rank aborts the barrier, and ``run`` re-raises it.
   * :class:`TorchDistGroup` — one rank per process over an initialised
     ``torch.distributed`` process group (NCCL on the card, gloo on the CPU).
-    It uses the collectives both backends have: ``all_to_all_single`` and the
-    list form of ``all_gather``; reductions gather and combine in rank order.
+    It uses the collectives both backends have: ``all_to_all_single``, the
+    list form of ``all_gather`` and ``batch_isend_irecv``; reductions gather
+    and combine in rank order.  :func:`world_group` joins the world a
+    launcher (``torchrun``) started, one process per card;
+    :meth:`TorchDistGroup.shrink` makes the group of the survivors of a
+    device loss.  Several processes on one card run over gloo (NCCL refuses
+    two ranks on one device); gloo has no CUDA path for some collectives,
+    and those it stages through the host (:attr:`TorchDistGroup.staged`).
 
 ``ranks`` lists the ranks this process holds, and ``run(fn)`` calls
 ``fn(rank_group)`` for each of them and returns their results in rank order:
@@ -33,6 +39,8 @@ all N for a ThreadGroup, this process's own for a TorchDistGroup.
 """
 from __future__ import annotations
 
+import datetime
+import os
 import threading
 from typing import Any, Callable, Sequence
 
@@ -40,13 +48,23 @@ import torch
 
 from .table import resolve_device
 
-__all__ = ["ThreadGroup", "TorchDistGroup", "REDUCE_OPS"]
+__all__ = ["ThreadGroup", "TorchDistGroup", "REDUCE_OPS", "join_world",
+           "world_group", "WORLD_TIMEOUT_S", "GLOO_CUDA_STAGED"]
 
 REDUCE_OPS = ("sum", "min", "max")
 
 # seconds a rank of a ThreadGroup waits at a collective: a rank that never
 # reaches it breaks the group instead of hanging it
 BARRIER_TIMEOUT_S = 600.0
+# seconds a process of a TorchDistGroup waits at a collective: a process
+# that raised alone breaks the others' collectives instead of hanging them
+WORLD_TIMEOUT_S = 300.0
+# the collectives gloo cannot run on CUDA tensors: under torch 2.11 on an
+# H100 its send and receive (``batch_isend_irecv``) wrote from the device
+# pointer and aborted the process ("writev: Bad address"), where its
+# all_to_all_single, all_gather and all_reduce ran.  Under gloo on a card
+# these go through the host.
+GLOO_CUDA_STAGED = frozenset({"ppermute"})
 
 
 def _reduce(xs: Sequence[torch.Tensor], op: str) -> torch.Tensor:
@@ -176,14 +194,106 @@ class _ThreadRank:
         return out
 
 
+def join_world(device: str | torch.device | None = None,
+               backend: str | None = None, init_method: str | None = None,
+               timeout_s: float = WORLD_TIMEOUT_S, bind: bool = True
+               ) -> tuple[torch.device, bool]:
+    """Join the world a launcher started: one process per card.
+
+    ``torchrun`` sets ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` and the
+    rendezvous (``env://``); ``init_method`` names another (``file://...``)
+    for the same variables.  Without ``WORLD_SIZE`` the world is this one
+    process (a ``HashStore``).  A CUDA ``device`` without an index becomes
+    ``cuda:LOCAL_RANK``, made current.  ``backend`` defaults to NCCL on a
+    card and gloo on the CPU; gloo on a card runs several ranks on one
+    device.  ``bind`` binds NCCL to the card (``device_id``: the
+    communicator starts at once, and torch then makes every subgroup by
+    splitting it, which every rank of the world must join).  Every
+    collective of the world waits at most ``timeout_s``.  A world that
+    exists already is joined as it is.
+
+    Returns this process's device and whether this call made the world (its
+    maker destroys it)."""
+    import torch.distributed as dist
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        return dev, False
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    kw = dict(backend=backend,
+              timeout=datetime.timedelta(seconds=timeout_s))
+    if backend == "nccl" and bind:
+        kw["device_id"] = dev
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group(init_method=init_method or "env://",
+                                rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]),
+                                **kw)
+    else:
+        dist.init_process_group(store=dist.HashStore(), rank=0,
+                                world_size=1, **kw)
+    return dev, True
+
+
+def world_group(device: str | torch.device | None = None,
+                backend: str | None = None, init_method: str | None = None,
+                timeout_s: float = WORLD_TIMEOUT_S) -> "TorchDistGroup":
+    """This process's rank of the launched world (:func:`join_world`) as a
+    :class:`TorchDistGroup`; its :meth:`~TorchDistGroup.close` destroys the
+    world where this call made it.  NCCL is not bound to the card: the
+    survivors of a device loss make their group without the lost ranks
+    (:meth:`TorchDistGroup.shrink`), which a split of the world cannot."""
+    dev, made = join_world(device, backend, init_method, timeout_s,
+                           bind=False)
+    group = TorchDistGroup(dev, timeout_s=timeout_s)
+    group.owns_world = made
+    return group
+
+
+# survivors' process groups, one per (world, global ranks): the same
+# survivors of a later loss reuse the group the first one made
+_SURVIVOR_GROUPS: dict[tuple, object] = {}
+
+
+def _survivors_group(ranks: tuple[int, ...], backend: str,
+                     timeout_s: float):
+    """A process group over the world ranks ``ranks`` that only they make.
+
+    ``dist.new_group(ranks, use_local_synchronization=True)`` would too, but
+    it names the group after the ranks and the number of groups the calling
+    process holds, and meets the members in the world's store under that
+    name: where a process lost in one query rejoins the next, it holds
+    fewer groups than the survivors of its loss, their names for a later
+    group differ, and they wait for each other until the timeout.  This
+    group is named after its ranks alone (made once per world:
+    ``_SURVIVOR_GROUPS``) and registered as ``new_group`` registers its
+    own."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+    pg, _ = c10d._new_process_group_helper(
+        len(ranks), ranks.index(dist.get_rank()), list(ranks), backend,
+        c10d._get_default_store(), "survivors_" + "_".join(map(str, ranks)),
+        timeout=datetime.timedelta(seconds=timeout_s))
+    c10d._world.pg_group_ranks[pg] = {g: r for r, g in enumerate(ranks)}
+    return pg
+
+
 class TorchDistGroup:
     """This process's rank of an initialised ``torch.distributed`` group.
 
     ``device`` is where this rank's tensors live (default: the current CUDA
-    device under NCCL, the CPU otherwise)."""
+    device under NCCL, the CPU otherwise).  ``process_group`` defaults to
+    the world.  ``global_ranks[r]`` is the world rank of group rank ``r``.
+    ``staged`` names the collectives that go through the host: under gloo
+    on a card, :data:`GLOO_CUDA_STAGED`; else none."""
+
+    owns_world = False
 
     def __init__(self, device: str | torch.device | None = None,
-                 process_group=None):
+                 process_group=None, timeout_s: float = WORLD_TIMEOUT_S):
         import torch.distributed as dist
         if not dist.is_initialized():
             raise RuntimeError("TorchDistGroup: call torch.distributed."
@@ -193,28 +303,68 @@ class TorchDistGroup:
         self.rank = dist.get_rank(process_group)
         self.size = dist.get_world_size(process_group)
         self.ranks = (self.rank,)
+        self.global_ranks = tuple(range(self.size)) if process_group is None \
+            else tuple(dist.get_global_rank(process_group, r)
+                       for r in range(self.size))
+        self.backend = dist.get_backend(process_group)
+        self.timeout_s = timeout_s
         if device is None:
             device = (torch.device("cuda", torch.cuda.current_device())
-                      if dist.get_backend(process_group) == "nccl"
-                      else torch.device("cpu"))
+                      if self.backend == "nccl" else torch.device("cpu"))
         self.device = torch.device(device)
+        self.staged = GLOO_CUDA_STAGED if (
+            self.backend == "gloo" and self.device.type == "cuda") \
+            else frozenset()
 
     def run(self, fn: Callable[["TorchDistGroup"], Any]) -> list:
         return [fn(self)]
 
+    def close(self) -> None:
+        """Destroy the world if :func:`world_group` made it."""
+        if self.owns_world and self._dist.is_initialized():
+            world = self._dist.group.WORLD
+            for key in [k for k in _SURVIVOR_GROUPS if k[0] is world]:
+                del _SURVIVOR_GROUPS[key]
+            self._dist.destroy_process_group()
+        self.owns_world = False
+
+    def shrink(self, lost) -> "TorchDistGroup":
+        """The group of every rank but the ``lost`` ones (ranks of this
+        group), renumbered in the survivors' order, each process on its own
+        device.  Only the survivors call it, and the lost processes take no
+        part in making the new process group."""
+        lost = set(lost)
+        if self.rank in lost:
+            raise ValueError(f"TorchDistGroup.shrink: rank {self.rank} is "
+                             f"among the lost {sorted(lost)}")
+        survivors = tuple(g for r, g in enumerate(self.global_ranks)
+                          if r not in lost)
+        key = (self._dist.group.WORLD, survivors)
+        if key not in _SURVIVOR_GROUPS:
+            _SURVIVOR_GROUPS[key] = _survivors_group(
+                survivors, self.backend, self.timeout_s)
+        return TorchDistGroup(self.device, _SURVIVOR_GROUPS[key],
+                              self.timeout_s)
+
+    def _out(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """``x`` where the collective ``name`` runs: the host if staged."""
+        return x.cpu() if name in self.staged else x
+
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        self._dist.all_to_all_single(out, x, group=self._pg)
-        return out
+        y = self._out("all_to_all", x.contiguous())
+        out = torch.empty_like(y)
+        self._dist.all_to_all_single(out, y, group=self._pg)
+        return out.to(self.device)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         shape, dtype = x.shape, x.dtype
         # gloo takes no bool and no 0-d tensors
-        y = x.reshape(-1).to(torch.uint8 if dtype == torch.bool else dtype)
+        y = self._out("all_gather", x.reshape(-1).to(
+            torch.uint8 if dtype == torch.bool else dtype).contiguous())
         outs = [torch.empty_like(y) for _ in range(self.size)]
-        self._dist.all_gather(outs, y.contiguous(), group=self._pg)
-        return torch.stack(outs).to(dtype).reshape(self.size, *shape)
+        self._dist.all_gather(outs, y, group=self._pg)
+        return torch.stack(outs).to(self.device).to(dtype) \
+            .reshape(self.size, *shape)
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         return _reduce(list(self.all_gather(x)), op)
@@ -222,17 +372,20 @@ class TorchDistGroup:
     def ppermute(self, x: torch.Tensor, perm: Sequence[tuple[int, int]]
                  ) -> torch.Tensor:
         dist = self._dist
-        x = x.contiguous()
-        out = torch.zeros_like(x)
+        y = self._out("ppermute", x.contiguous())
+        out = torch.zeros_like(y)
         ops = []
+        # P2POp takes the peer's world rank
         for s, d in perm:
             if s == d == self.rank:
-                out = x.clone()
+                out = y.clone()
             elif s == self.rank:
-                ops.append(dist.P2POp(dist.isend, x, d, self._pg))
+                ops.append(dist.P2POp(dist.isend, y, self.global_ranks[d],
+                                      self._pg))
             elif d == self.rank:
-                ops.append(dist.P2POp(dist.irecv, out, s, self._pg))
+                ops.append(dist.P2POp(dist.irecv, out, self.global_ranks[s],
+                                      self._pg))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        return out
+        return out.to(self.device)

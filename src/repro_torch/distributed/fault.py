@@ -112,16 +112,25 @@ class QueryTimeout(RuntimeError):
 def surviving_group(group, lost: tuple[int, ...]):
     """A rank group of every rank of ``group`` except the ``lost`` ones.
 
-    For a :class:`~repro_torch.core.comm.ThreadGroup` that is a smaller
-    ThreadGroup on the same device: its ranks renumber 0..N'-1 in the
-    survivors' order, which is all the engine needs (it re-partitions the
-    database over N').  A ``TorchDistGroup`` spans processes, and shrinking
-    it needs a new process group over the survivors on a host with several
-    cards, which is not yet done (ROADMAP queue A, item 6)."""
+    Its ranks renumber 0..N'-1 in the survivors' order, which is all the
+    engine needs (it re-partitions the database over N').  For a
+    :class:`~repro_torch.core.comm.ThreadGroup` that is a smaller
+    ThreadGroup on the same device.  A ``TorchDistGroup`` spans processes:
+    the survivors make a process group of their own
+    (:meth:`~repro_torch.core.comm.TorchDistGroup.shrink`, each keeping its
+    card) and check over it, with one ``all_gather``, that every one of
+    them lost the same ranks."""
     if isinstance(group, comm.TorchDistGroup):
-        raise NotImplementedError(
-            "surviving_group: shrinking a TorchDistGroup across processes is "
-            "not ported (ROADMAP A6: needs a host with several cards)")
+        new = group.shrink(lost)
+        mine = torch.zeros(group.size, dtype=torch.int32, device=group.device)
+        mine[list(lost)] = 1
+        seen = new.all_gather(mine)
+        if not bool((seen == mine).all()):
+            raise RuntimeError(
+                f"surviving_group: the survivors disagree on the lost ranks "
+                f"of {group.size}: "
+                f"{[torch.nonzero(r).flatten().tolist() for r in seen]}")
+        return new
     survivors = [r for r in range(group.size) if r not in set(lost)]
     if not survivors:
         raise ValueError(f"no survivors: lost {lost!r} of {group.size} ranks")
@@ -279,10 +288,17 @@ class QueryRunner:
         device (the dead ranks' memory is gone in the cluster this models),
         bump the generation, and re-scale the perf-model budgets to the new
         width.  Returns the resolved dead ranks (empty when nothing can
-        shrink — a 1-rank group or the single-device path)."""
+        shrink — a 1-rank group or the single-device path — and on a
+        process of a ``TorchDistGroup`` whose own rank is lost, which frees
+        its shards and leaves the group: the caller re-raises)."""
         world = self.devices
         lost = resolve_lost(exc, world)
         if not lost or self.group is None:
+            return ()
+        if isinstance(self.group, comm.TorchDistGroup) and \
+                self.group.rank in lost:
+            # this process is the dead card: it leaves the group
+            B.release_shards(self.db, self.device, world)
             return ()
         self.group = surviving_group(self.group, lost)
         B.release_shards(self.db, self.device, world)
@@ -292,6 +308,16 @@ class QueryRunner:
             # Hockney / Eq. 3 pricing must see N', not the boot-time N
             self.cluster = self.cluster.with_devices(self.devices)
         return lost
+
+    def _group_seconds(self, seconds: float) -> float:
+        """``seconds`` on this process's clock, or, on a group that spans
+        processes, the most any of them took: a retry decided by one
+        process's clock alone would leave the others waiting in a
+        collective it never joins."""
+        if not isinstance(self.group, comm.TorchDistGroup):
+            return seconds
+        t = torch.tensor([seconds], dtype=torch.float64, device=self.device)
+        return float(self.group.all_reduce(t, "max")[0])
 
     def _attempt(self, fn, factor: float, wire_format: str | None):
         """Execute one attempt; returns (result, stats, overflow, reused)."""
@@ -340,12 +366,13 @@ class QueryRunner:
         overflow_failures = transient_failures = 0
         t_start = time.perf_counter()
         for attempt in range(1, policy.max_attempts + 1):
-            if self.deadline_s is not None and attempt > 1 and \
-                    time.perf_counter() - t_start > self.deadline_s:
-                raise QueryTimeout(
-                    f"overall deadline {self.deadline_s:.3f}s exceeded "
-                    f"after {attempt - 1} attempts "
-                    f"({time.perf_counter() - t_start:.3f}s)", report)
+            if self.deadline_s is not None and attempt > 1:
+                spent = self._group_seconds(time.perf_counter() - t_start)
+                if spent > self.deadline_s:
+                    raise QueryTimeout(
+                        f"overall deadline {self.deadline_s:.3f}s exceeded "
+                        f"after {attempt - 1} attempts ({spent:.3f}s)",
+                        report)
             if self.chaos is not None:
                 self.chaos.begin_attempt(attempt)
             inference = getattr(fn, "_infer", True) is not False
@@ -377,7 +404,9 @@ class QueryRunner:
                     # per-device budgets re-price through the cluster spec)
                     lost = self._shrink_topology(exc)
                     if not lost:
-                        raise    # 1 rank: no survivors to shrink onto
+                        # 1 rank: no survivors to shrink onto; or this
+                        # process's own card is the one lost
+                        raise
                     rep.error += (f" [lost {list(lost)} -> "
                                   f"{self.devices} devices]")
                     replan = getattr(fn, "info", None)
@@ -415,13 +444,14 @@ class QueryRunner:
                     fn = query_fn.with_inference(False)
                 continue
             if policy.deadline_s is not None and \
-                    rep.wall_s > policy.deadline_s and \
                     attempt < policy.max_attempts:
-                # straggler: correct but late — speculative re-execution
-                rep.outcome = FailureKind.TRANSIENT.value
-                rep.error = (f"deadline {policy.deadline_s:.3f}s exceeded "
-                             f"({rep.wall_s:.3f}s)")
-                continue
+                wall = self._group_seconds(rep.wall_s)
+                if wall > policy.deadline_s:
+                    # straggler: correct but late — speculative re-execution
+                    rep.outcome = FailureKind.TRANSIENT.value
+                    rep.error = (f"deadline {policy.deadline_s:.3f}s "
+                                 f"exceeded ({wall:.3f}s)")
+                    continue
             return RunResult(result, stats, attempt, factor,
                              time.perf_counter() - t_start, report)
         raise RuntimeError(

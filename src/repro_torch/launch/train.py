@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config
+from repro_torch.core import comm
 from repro_torch.core.table import resolve_device
 from repro_torch.distributed import shardings as sh
 from repro_torch.distributed.checkpoint import CheckpointManager
@@ -88,18 +89,7 @@ def main(argv: list[str] | None = None) -> dict:
         world = dist.get_world_size() if dist.is_initialized() else \
             int(os.environ.get("WORLD_SIZE", "1"))
         mesh_shape(world, args.tp, args.multi_pod)    # raises if it cannot
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-            torch.cuda.set_device(dev)
-        if not dist.is_initialized():
-            kw = {"backend": "nccl", "device_id": dev} \
-                if dev.type == "cuda" else {"backend": "gloo"}
-            if "WORLD_SIZE" in os.environ:             # torchrun: env://
-                dist.init_process_group(**kw)
-            else:
-                dist.init_process_group(store=dist.HashStore(), rank=0,
-                                        world_size=1, **kw)
-            made_group = True
+        dev, made_group = comm.join_world(dev)
     try:
         return _train(args, dev, sharded)
     finally:

@@ -9,11 +9,11 @@ every rank at the same visit and records it once.  The differential test at
 the end holds that to the reference: the same ``FaultPlan`` on the
 reference's runner over a 4-device mesh (a subprocess with virtual devices)
 and on the port's over ``ThreadGroup(4, "cpu")`` must give equal events,
-outcomes and results.
+outcomes and results (the plans and the reference's script are in
+``tests/torch_chaos_cases.py``, which ``test_torch_dist_procs.py`` shares).
 """
 import json
 import os
-import subprocess
 import sys
 import threading
 
@@ -23,11 +23,13 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_chaos_cases as cases
 from repro.distributed import chaos as rchaos
 from repro_torch.core import backend as B
 from repro_torch.core import comm
 from repro_torch.core import wire as W
 from repro_torch.data import tpch
+from repro_torch.distributed import chaos
 from repro_torch.distributed.chaos import (ChaosInjector, FailureKind,
                                            FaultPlan, FaultSpec,
                                            TransientFault, chaos_env_seed)
@@ -35,8 +37,7 @@ from repro_torch.distributed.fault import (QueryRunner, RetryPolicy,
                                            classify_failure)
 from repro_torch.distributed.lineage import LineageStore, run_resumable
 from repro_torch.queries import QUERIES
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from torch_chaos_cases import DIFF_CASES
 
 
 @pytest.fixture(scope="module")
@@ -416,74 +417,11 @@ def test_runner_with_lineage_resumes(db, tmp_path):
 # the same plans on the reference's runner, over a 4-device mesh
 # ---------------------------------------------------------------------------
 
-# (name, query, plan kind, plan seed, start capacity factor)
-DIFF_CASES = [("default_q9", 9, "default", 11, 1.5),
-              ("default_q18", 18, "default", 11, 1.5),
-              ("loss_q5", 5, "loss_random", 7, 3.0),
-              ("loss_q13", 13, "loss_rank1", 3, 3.0)]
-
-_REF_SCRIPT = r"""
-import json, sys
-import numpy as np
-from repro.core.compat import make_mesh
-from repro.data import tpch
-from repro.distributed.chaos import ChaosInjector, FaultPlan
-from repro.distributed.fault import QueryRunner, RetryPolicy
-from repro.queries import QUERIES
-
-out_path, cases = sys.argv[1], json.loads(sys.argv[2])
-db = tpch.generate(0.005, seed=11)
-mesh = make_mesh((4,), ("data",))
-meta, arrays = {}, {}
-for name, qid, kind, seed, factor in cases:
-    if kind == "default":
-        plan = FaultPlan.default(seed)
-    elif kind == "loss_random":
-        plan = FaultPlan.device_loss(seed, n_lost=1, cut="group_by")
-    else:
-        plan = FaultPlan.device_loss(seed, devices=(1,), cut="exchange")
-    runner = QueryRunner(db, mesh, capacity_factor=factor,
-                         chaos=ChaosInjector(plan),
-                         policy=RetryPolicy(max_attempts=6, backoff_s=0.0))
-    res = runner.run(QUERIES[qid])
-    meta[name] = {
-        "outcomes": res.report.outcomes(),
-        "events": [[f.attempt, f.cut, f.index, f.kind, f.simulated]
-                   for f in res.report.injected],
-        "devices": runner.devices, "lost": list(runner.lost_devices),
-        "generation": runner.topology_generation,
-        "factors": [a.capacity_factor for a in res.report.attempts],
-        "wires": [a.wire_format for a in res.report.attempts]}
-    for k, v in res.result.items():
-        arrays[name + "/" + k] = np.asarray(v)
-np.savez(out_path, **arrays)
-with open(out_path + ".json", "w") as f:
-    json.dump(meta, f)
-"""
-
-
-def _plan(kind, seed):
-    if kind == "default":
-        return FaultPlan.default(seed)
-    if kind == "loss_random":
-        return FaultPlan.device_loss(seed, n_lost=1, cut="group_by")
-    return FaultPlan.device_loss(seed, devices=(1,), cut="exchange")
-
-
 @pytest.fixture(scope="module")
 def reference_runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("chaos") / "ref.npz"
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
-    env.pop("REPRO_CHAOS", None)
-    res = subprocess.run([sys.executable, "-c", _REF_SCRIPT, str(out),
-                          json.dumps(DIFF_CASES)], env=env,
-                         capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    with open(str(out) + ".json") as f:
-        meta = json.load(f)
-    return meta, dict(np.load(out))
+    return cases.finish_reference(cases.start_reference(out, DIFF_CASES),
+                                  out)
 
 
 @pytest.mark.parametrize("name,qid,kind,seed,factor", DIFF_CASES,
@@ -491,27 +429,9 @@ def reference_runs(tmp_path_factory):
 def test_same_plan_as_the_reference(db, reference_runs, name, qid, kind,
                                     seed, factor):
     meta, arrays = reference_runs
-    want = meta[name]
     runner = QueryRunner(db, 4, capacity_factor=factor, device="cpu",
-                         chaos=ChaosInjector(_plan(kind, seed)),
+                         chaos=ChaosInjector(cases.plan(chaos, kind, seed)),
                          policy=RetryPolicy(max_attempts=6, backoff_s=0.0))
     res = runner.run(QUERIES[qid])
-    got = {
-        "outcomes": res.report.outcomes(),
-        "events": [[f.attempt, f.cut, f.index, f.kind, f.simulated]
-                   for f in res.report.injected],
-        "devices": runner.devices, "lost": list(runner.lost_devices),
-        "generation": runner.topology_generation,
-        "factors": [a.capacity_factor for a in res.report.attempts],
-        "wires": [a.wire_format for a in res.report.attempts]}
-    assert got == want
-    cols = {k.split("/", 1)[1]: v for k, v in arrays.items()
-            if k.startswith(name + "/")}
-    assert set(cols) == set(res.result)
-    for k, v in cols.items():
-        mine = res.result[k]
-        assert len(mine) == len(v), k
-        if np.issubdtype(v.dtype, np.floating):
-            np.testing.assert_allclose(mine, v, rtol=1e-7, err_msg=k)
-        else:
-            np.testing.assert_array_equal(mine, v, err_msg=k)
+    assert cases.record(runner, res) == meta[name]
+    cases.assert_same_result(res.result, arrays, name)

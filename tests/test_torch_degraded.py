@@ -102,13 +102,6 @@ def test_surviving_group():
         surviving_group(comm.ThreadGroup(1, "cpu"), (0,))
 
 
-def test_surviving_group_refuses_a_process_group():
-    """Shrinking a TorchDistGroup is not ported; it says where that stands."""
-    g = comm.TorchDistGroup.__new__(comm.TorchDistGroup)
-    with pytest.raises(NotImplementedError, match="A6"):
-        surviving_group(g, (1,))
-
-
 # ---------------------------------------------------------------------------
 # seeded decorrelated jitter and the overall deadline
 # ---------------------------------------------------------------------------
