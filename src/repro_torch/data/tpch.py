@@ -86,9 +86,9 @@ wake regular theodolites nag slyly bold foxes integrate daring sauternes""".spli
 def generate(scale: float, seed: int = 7, skew: float = 0.0) -> Database:
     """Generate a TPC-H database at the given scale factor.
 
-    ``skew > 0`` produces the JCC-H-style variant (``repro.data.jcch``,
-    not ported yet): a fraction of FK references concentrates on a few hot
-    keys, which skews both partition sizes and shuffle destinations.
+    ``skew > 0`` produces the JCC-H-style variant (``data/jcch.py``): a
+    fraction of FK references concentrates on a few hot keys, which skews
+    both partition sizes and shuffle destinations.
     """
     rng = np.random.default_rng(seed)
     n_part = max(64, int(200_000 * scale))

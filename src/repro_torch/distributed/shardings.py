@@ -251,7 +251,8 @@ def make_constrain(mesh, axes: MeshAxes, seq_parallel: bool = False):
 
     A dim that its axes do not divide (a decode step's one token, batch 1
     at long-context decode) stays whole: DTensor will not flatten an uneven
-    shard into a product, where XLA pads it."""
+    shard into a product, where XLA pads it; nor a cut dim of one, even over
+    a mesh dim of one rank."""
     dp = _dp(axes)
     mesh = compute_mesh(mesh)
     size = dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -264,8 +265,8 @@ def make_constrain(mesh, axes: MeshAxes, seq_parallel: bool = False):
 
     def placed(x, spec) -> tuple:
         return tuple(placements(mesh, Spec(
-            *(e if e is None or x.shape[d] % ways(e) == 0 else None
-              for d, e in enumerate(spec)))))
+            *(e if e is None or x.shape[d] > 1 and x.shape[d] % ways(e) == 0
+              else None for d, e in enumerate(spec)))))
 
     def constrain(x, kind: str):
         if x.ndim < 2 or not isinstance(x, DTensor):

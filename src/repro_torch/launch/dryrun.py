@@ -32,7 +32,13 @@ not divide, as XLA pads every shard to the largest):
   what a fused program moves;
 * ``collective_count`` / ``collective_bytes`` by the reference's kind names,
   the bytes of each functional collective's result, as the reference
-  counts an HLO collective's result;
+  counts an HLO collective's result; DTensor's move of a shard from one
+  dim to another counts as the one all-to-all a CUDA mesh issues (on this
+  CPU mesh DTensor would fall back to an all-gather and a chunk);
+* ``shard_moves``: those moves' bytes apart, ``all-to-all`` as counted in
+  ``collective_bytes`` and ``as_all_gather`` as the CPU mesh's all-gather
+  would count them (its result, every rank's input), so that the bytes
+  can be read under either count;
 * ``roofline``: ``distributed/roofline.py`` at ``core/perfmodel.CLUSTERS
   ["h100_ib"]``'s peaks (989 TFLOP/s bf16, 3.35 TB/s), the collectives at
   the per-device share of the machine's network (400 GB/s over 8 cards;
@@ -76,6 +82,7 @@ from fractions import Fraction
 
 import torch
 import torch.distributed as dist
+from torch.distributed.distributed_c10d import _resolve_process_group
 from torch.distributed.tensor import DTensor, Shard
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
@@ -108,7 +115,8 @@ _COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_coalesced":
                 "all_gather_into_tensor_coalesced": "all-gather",
                 "reduce_scatter_tensor": "reduce-scatter",
                 "reduce_scatter_tensor_coalesced": "reduce-scatter",
-                "all_to_all_single": "all-to-all"}
+                "all_to_all_single": "all-to-all",
+                "shard_dim_alltoall": "all-to-all"}
 # local operations counted as moving no bytes: allocation, aliasing and
 # zero fills (the backward of a time loop's ``stack`` fills the slices a
 # weighted trace stood in for with zeros, where a direct trace has
@@ -257,13 +265,19 @@ class OpCounter(TorchDispatchMode):
     def _count(self, func, args, kwargs, out, w: int) -> None:
         c = self.counts
         name = func._opname
-        if func.namespace == "_c10d_functional":
+        if func.namespace in ("_c10d_functional", "_dtensor"):
             kind = _COLLECTIVES.get(name)
             if kind is not None:
                 c[("count", kind)] += w
                 c[("bytes", kind)] += w * sum(
                     _nbytes(t) for t in tree_leaves(out)
                     if isinstance(t, torch.Tensor))
+            if name == "shard_dim_alltoall":
+                # the same move as the CPU mesh's all-gather counts it
+                ranks = _resolve_process_group(args[3]).size()
+                c[("shard_move", "all-to-all")] += w * _nbytes(out)
+                c[("shard_move", "all-gather")] += \
+                    w * ranks * _nbytes(args[0])
             return
         if func.is_view or name in _NO_TRAFFIC:
             return
@@ -272,6 +286,14 @@ class OpCounter(TorchDispatchMode):
             c["flops"] += w * int(formula(*args, **kwargs, out_val=out))
         c["traffic_bytes"] += w * sum(_nbytes(t) for t in tree_leaves(
             (args, kwargs, out)) if isinstance(t, torch.Tensor))
+
+
+def _card_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's move of a shard from one dim to another as a CUDA mesh
+    issues it, one all-to-all: on a CPU mesh DTensor falls back to an
+    all-gather and a chunk, whose bytes are the whole dim's."""
+    return torch.ops._dtensor.shard_dim_alltoall(
+        input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
 
 
 def _planning():
@@ -289,9 +311,13 @@ def _planning():
 def counting():
     """An :class:`OpCounter` active, the SSMs' time loops weighted through
     it, DTensor's planning not counted."""
+    from torch.distributed.tensor import placement_types
     counter = OpCounter()
-    saved = [(ssm, "scan", ssm.scan)]
+    saved = [(ssm, "scan", ssm.scan),
+             (placement_types, "shard_dim_alltoall",
+              placement_types.shard_dim_alltoall)]
     ssm.scan = counter.scan
+    placement_types.shard_dim_alltoall = _card_alltoall
     for owner, name in _planning():
         fn = getattr(owner, name, None)
         if fn is None:
@@ -530,6 +556,9 @@ def cell_record(cfg: ArchConfig, shape_id: str, mesh, opts: Options,
     coll_count = {k: v for (what, k), v in
                   ((k, v) for k, v in got.items() if isinstance(k, tuple))
                   if what == "count"}
+    moves = {k: v for (what, k), v in
+             ((k, v) for k, v in got.items() if isinstance(k, tuple))
+             if what == "shard_move"}
     rec = {"shape": shape_id, "mesh": "x".join(map(str, mesh.shape)),
            "n_devices": n_dev, "kind": kind, "reduced": reduced}
     rec["memory"] = {"argument_bytes": full.argument_bytes,
@@ -541,6 +570,8 @@ def cell_record(cfg: ArchConfig, shape_id: str, mesh, opts: Options,
     rec["traffic_note"] = "each local operation's inputs and outputs, unfused"
     rec["collective_bytes"] = coll_bytes
     rec["collective_count"] = coll_count
+    rec["shard_moves"] = {"all-to-all": moves.get("all-to-all", 0),
+                          "as_all_gather": moves.get("all-gather", 0)}
     rec["loops"] = LOOP_METHOD
     rec["traces"] = n_traces
     spec = CLUSTERS[CLUSTER]

@@ -13,18 +13,39 @@ says, as the reference's does.
 from __future__ import annotations
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch import nn
+from torch.distributed.tensor import Replicate
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import NEG_INF
-from .common import (ArchConfig, apply_rope, dense_init, merge_dim, on_mesh,
-                     on_shards, param_dict, rms_norm, split_dim)
+from .common import (ArchConfig, apply_rope, cut_dims, dense_init, merge_dim,
+                     on_mesh, on_shards, param_dict, rms_norm, split_dim)
 
 
 def _at_pos(cache_arr: torch.Tensor, update: torch.Tensor,
             pos: int) -> torch.Tensor:
-    """Write ``update`` into ``cache_arr`` at (0, pos, 0, ...), in place."""
-    cache_arr[:, pos:pos + update.shape[1]] = update.to(cache_arr.dtype)
+    """Write ``update`` into ``cache_arr`` at (0, pos, 0, ...), in place.
+    A DTensor cache cut on its sequence (batch-1 long decode) is written
+    locally, each rank the positions it holds: DTensor would gather the
+    whole sequence to write a slice of it."""
+    seq = cut_dims(cache_arr, 1)
+    if not seq:
+        cache_arr[:, pos:pos + update.shape[1]] = update.to(cache_arr.dtype)
+        return cache_arr
+    mesh = cache_arr.device_mesh
+    pl = [Replicate() if i in seq else p
+          for i, p in enumerate(cache_arr.placements)]
+    upd = update.to(cache_arr.dtype).redistribute(mesh, pl).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        cache_arr.shape, mesh, cache_arr.placements)
+    lo = max(pos, offset[1])
+    hi = min(pos + upd.shape[1], offset[1] + shape[1])
+    if lo < hi:
+        cache_arr.to_local()[:, lo - offset[1]:hi - offset[1]] = \
+            upd[:, lo - pos:hi - pos]
     return cache_arr
 
 
@@ -56,30 +77,50 @@ def _qkv(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = apply_rope(split_dim(q, 2, h), positions, cfg.rope_theta)
-    k = apply_rope(split_dim(k, 2, kv), positions, cfg.rope_theta)
-    return q, k, split_dim(v, 2, kv)
+    # KV heads that the model axis does not divide stay whole over it, as
+    # the cache holds them; each rank reads its query heads' share
+    k = apply_rope(split_dim(k, 2, kv, recut=False), positions,
+                   cfg.rope_theta)
+    return q, k, split_dim(v, 2, kv, recut=False)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: torch.Tensor | None, scale: float) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,L,KV,hd), mask (B,S,L) or None; float32
-    scores and softmax, the output in q's dtype (on each rank's (batch,
-    head) shards for DTensors)."""
+    scores and softmax, the output in q's dtype (on each rank's shards for
+    DTensors: ``on_shards``' rows are the queries, its keys the keys)."""
+    kv = [(k, 0, 2, None, 1), (v, 0, 2, None, 1)]
     if mask is None:
-        return on_shards(lambda q, k, v: _sdpa_local(q, k, v, None, scale),
-                         (0, 2), (q, 0, 2), (k, 0, 2), (v, 0, 2))
-    return on_shards(lambda q, k, v, m: _sdpa_local(q, k, v, m, scale),
-                     (0, 2), (q, 0, 2), (k, 0, 2), (v, 0, 2),
-                     (on_mesh(mask, q), 0, None))
+        return on_shards(lambda q, k, v, **kw: _sdpa_local(q, k, v, None,
+                                                           scale, **kw),
+                         (0, 2, 1), (q, 0, 2, 1), *kv, balance=True)
+    return on_shards(lambda q, k, v, m, **kw: _sdpa_local(q, k, v, m, scale,
+                                                          **kw),
+                     (0, 2, 1), (q, 0, 2, 1), *kv,
+                     (on_mesh(mask, q), 0, None, 1, 2), balance=True)
 
 
-def _sdpa_local(q, k, v, mask, scale: float) -> torch.Tensor:
-    kv = k.shape[2]
-    qg = q.reshape(*q.shape[:2], kv, q.shape[2] // kv, q.shape[3])
+def _sdpa_local(q, k, v, mask, scale: float, key_groups=()) -> torch.Tensor:
+    """The attention on local tensors; with ``key_groups`` (the keys cut
+    over those groups, which ``on_shards`` plans only without a gradient) the
+    softmax's max and sum are reduced over them and the result is this
+    rank's share of the sum over its keys."""
+    kv = k.shape[2]                 # 0 on a rank past the heads' shards
+    qg = q.reshape(*q.shape[:2], kv, q.shape[2] // max(kv, 1), q.shape[3])
     scores = torch.einsum("bskgd,blkd->bkgsl", qg.float(), k.float()) * scale
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
-    w = torch.softmax(scores, dim=-1)
+    if key_groups:
+        top = scores.amax(dim=-1, keepdim=True)
+        for g in key_groups:
+            top = funcol.all_reduce(top, "max", g)
+        w = torch.exp(scores - top)
+        total = w.sum(dim=-1, keepdim=True)
+        for g in key_groups:
+            total = funcol.all_reduce(total, "sum", g)
+        w = w / total
+    else:
+        w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgsl,blkd->bskgd", w, v.float())
     return out.reshape(q.shape).to(q.dtype)                  # (B,S,H,hd)
 
@@ -112,7 +153,9 @@ def gqa_forward(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
         # the blocked online-softmax kernel (csrc/flash_attention.cu on the
         # card, its plain version on the CPU), given a DTensor's local
         # shards: its wrapper takes raw pointers
-        o = on_shards(_flash, (0, 2), (q, 0, 2), (k, 0, 2), (v, 0, 2))
+        # (its causal mask starts at query 0: balanced by batch only)
+        o = on_shards(_flash, (0, 2), (q, 0, 2), (k, 0, 2), (v, 0, 2),
+                      balance=True)
     else:
         o = _sdpa(q, k, v, causal_mask(b, s, n_prefix, x.device),
                   1.0 / (cfg.hd ** 0.5))
@@ -212,7 +255,8 @@ def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope,
             (k_rope, 0, None), (v, 0, 2)]                # one shared key head
     if mask is not None:
         args.append((on_mesh(mask, q_nope), 0, None))
-    o = on_shards(lambda *t: _mla_scores(*t, scale=scale), (0, 2), *args)
+    o = on_shards(lambda *t: _mla_scores(*t, scale=scale), (0, 2), *args,
+                  balance=True)
     return merge_dim(o, 2) @ p["wo"]
 
 

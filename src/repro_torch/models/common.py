@@ -13,12 +13,17 @@ A model whose parameters are DTensors (sharded over a mesh,
 ``distributed/shardings.py``) computes on DTensors throughout: a tensor
 the model makes itself (positions, RoPE tables, masks, zeros) is made
 whole and passed through :func:`on_mesh`, which replicates it on the mesh
-of the DTensor it meets; :func:`split_dim`, :func:`merge_dim` and
-:func:`on_shards` keep heads whole where DTensor cannot cut them.
+of the DTensor it meets.  :func:`split_dim`, :func:`merge_dim` and
+:func:`on_shards` cut heads where DTensor will not (a count that the mesh
+does not divide) and run per-(batch, head) work on each rank's own shards,
+planned from every tensor, so that each device does the reference's share
+of the work; :func:`embed_lookup` looks rows up in a table cut over its
+vocabulary.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -26,7 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
-from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,10 +137,8 @@ def on_mesh(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def whole_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
     """A DTensor with dim ``dim`` gathered on every rank; a plain tensor as
-    it is.  The embedding takes the vocabulary whole (DTensor's
-    masked-partial gather over a sharded vocabulary fails on torch 2.13's
-    CPU backend), an SSM's time loop the time dim (one gather, not one a
-    step)."""
+    it is.  An SSM's time loop takes the time dim whole (one gather, not one
+    a step)."""
     if not isinstance(t, DTensor):
         return t
     dim %= t.ndim
@@ -143,39 +147,92 @@ def whole_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
     return t.redistribute(t.device_mesh, pl)
 
 
-def _cuts_heads(t: torch.Tensor, n: int) -> bool:
+def cut_dims(t: torch.Tensor, dim: int) -> list[int]:
+    """The mesh dims that cut dim ``dim`` of the DTensor ``t`` ([] for a
+    plain tensor)."""
+    if not isinstance(t, DTensor):
+        return []
+    return [i for i, p in enumerate(t.placements)
+            if isinstance(p, Shard) and p.dim % t.ndim == dim % t.ndim]
+
+
+def _uneven_cut(t: torch.Tensor, dim: int, n: int) -> list[int]:
+    """The mesh dims that cut dim ``dim`` of the DTensor ``t`` where
+    together they do not divide its ``n`` heads (24 heads over a model axis
+    of 16), else [].  A mesh dim that cuts another dim never matters."""
+    cuts = cut_dims(t, dim)
+    return cuts if n % math.prod(t.device_mesh.size(i) for i in cuts) else []
+
+
+def _cut_dim(t: torch.Tensor, dim: int, mesh_dims: list[int]) -> torch.Tensor:
+    """The DTensor ``t``, whole on ``mesh_dims``, cut there on dim ``dim``
+    (a local slice; uneven where they do not divide it, the first shards
+    the largest, as ``torch.chunk`` cuts)."""
+    pl = list(t.placements)
+    for i in mesh_dims:
+        pl[i] = Shard(dim)
+    return t.redistribute(t.device_mesh, pl)
+
+
+def cut_over(t: torch.Tensor, dim: int, mesh_dims: list[int]
+             ) -> torch.Tensor:
+    """The DTensor ``t`` cut on dim ``dim`` over ``mesh_dims``, where it is
+    whole (a local slice); a plain tensor, or no mesh dims, as it is."""
+    return _cut_dim(t, dim % t.ndim, mesh_dims) \
+        if isinstance(t, DTensor) and mesh_dims else t
+
+
+def _any_uneven(t: torch.Tensor, n: int) -> bool:
     """Whether some mesh dim of the DTensor ``t`` has more ranks than ``n``
-    heads divide (8 KV heads over a model axis of 16, 24 over 16)."""
+    heads divide, so that a cut there could split a head."""
     return isinstance(t, DTensor) and \
         any(n % t.device_mesh.size(i) for i in range(t.device_mesh.ndim))
 
 
-def split_dim(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+def split_dim(t: torch.Tensor, dim: int, n: int,
+              recut: bool = True) -> torch.Tensor:
     """``t`` with dim ``dim`` viewed as (n, size / n), e.g. a projection's
-    width as (heads, head dim).  Where a mesh dim could cut the ``n`` heads
-    unevenly (:func:`_cuts_heads`) the DTensor's dim is gathered before the
-    view and the heads after it (a no-op forward; in the backward the
-    gradient is gathered before the view's reverse): DTensor will not view
-    a shard that splits a head."""
+    width as (heads, head dim).  Where the mesh dims that cut the width cut
+    the ``n`` heads unevenly (:func:`_uneven_cut`) the width is gathered
+    before the view (DTensor will not view a shard that splits a head) and,
+    with ``recut``, the heads are cut again over the same mesh dims after
+    it, by a local slice: rank 0 holds ceil(n / ranks) heads, as XLA pads
+    them.  Without ``recut`` they stay whole there, as the reference's
+    ``cache_specs`` keeps KV heads that the model axis does not divide.
+    Where some mesh dim does not divide the heads the view is followed by
+    a redistribution even where nothing moves: in the backward it gathers
+    a gradient cut there before the view's reverse."""
     d = dim % t.ndim
-    uneven = _cuts_heads(t, n)
+    uneven = _uneven_cut(t, d, n)
     if uneven:
         t = whole_dim(t, d)
     out = t.reshape(*t.shape[:d], n, t.shape[d] // n, *t.shape[d + 1:])
-    return whole_dim(out, d) if uneven else out
+    if _any_uneven(out, n):
+        out = _cut_dim(out, d, uneven if recut else [])
+    return out
 
 
 def merge_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
     """``t`` with dims ``dim`` and ``dim + 1`` (heads, head dim) viewed as
-    one, gathered around the view as :func:`split_dim` does where the
-    heads could be cut unevenly."""
+    one.  Heads cut unevenly are gathered before the view and the width is
+    cut again over the same mesh dims after it (a local slice), as a
+    row-parallel product takes it; a pending sum (:func:`on_shards`'
+    balanced blocks) is reduced onto the width so cut (a reduce-scatter:
+    DTensor would rather gather the product's weight and repeat the product
+    on every rank).  The backward is guarded as :func:`split_dim`'s."""
     d = dim % t.ndim
-    uneven = _cuts_heads(t, t.shape[d])
+    n = t.shape[d]
+    uneven = _uneven_cut(t, d, n)
     if uneven:
         t = whole_dim(t, d)
-    out = t.reshape(*t.shape[:d], t.shape[d] * t.shape[d + 1],
-                    *t.shape[d + 2:])
-    return whole_dim(out, d) if uneven else out
+    if cut_dims(t, d + 1):          # a head dim cut (a one-token state read)
+        t = whole_dim(t, d + 1)
+    out = t.reshape(*t.shape[:d], n * t.shape[d + 1], *t.shape[d + 2:])
+    pending = [i for i, p in enumerate(out.placements) if p.is_partial()] \
+        if isinstance(out, DTensor) else []
+    if _any_uneven(out, n) or pending:
+        out = _cut_dim(out, d, uneven + pending)
+    return out
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -192,48 +249,272 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def on_shards(fn, out_dims: tuple[int, int | None], *args):
+def _plan(args) -> list[str | None]:
+    """Per mesh dim of :func:`on_shards`' tensors: ``"batch"`` where some
+    tensor is cut there on its batch (a KV cache), else ``"keys"`` where
+    some tensor is cut there on its keys (a sequence-cut decode cache) and
+    no gradient is taken (the softmax's statistics are reduced by
+    collectives without a backward), else ``"head"`` where some tensor is
+    cut there on its heads or holds a pending sum with heads (which then
+    goes onto them), else ``"rows"`` where some tensor is cut there on its
+    rows, else None (replicated): keys cut under a gradient are gathered."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t, *_ in args)
+    plan = []
+    for i in range(args[0][0].device_mesh.ndim):
+        held = [(t.placements[i], dims) for t, *dims in args
+                if isinstance(t, DTensor)]
+
+        def cut(pick):
+            return any(isinstance(p, Shard) and dims[pick] == p.dim
+                       for p, dims in held)
+        if cut(0):
+            plan.append("batch")
+        elif cut(3) and not grad:
+            plan.append("keys")
+        elif cut(1) or any(dims[1] is not None and p.is_partial()
+                           for p, dims in held):
+            plan.append("head")
+        elif cut(2):
+            plan.append("rows")
+        else:
+            plan.append(None)
+    return plan
+
+
+def _kv_heads(lo: int, n: int, group: int):
+    """The KV heads that query heads lo .. lo + n - 1 read, ``group`` query
+    heads a KV head -> (first, count, index): the local query heads read the
+    KV slice (first, count) in groups of n / count, or, where a group
+    straddles the shard's edge unevenly, through ``index`` (one KV head a
+    query head)."""
+    if n == 0:
+        return 0, 0, None
+    first = lo // group
+    kv = [(lo + j) // group - first for j in range(n)]
+    count = kv[-1] + 1
+    if n % count == 0 and kv == [j // (n // count) for j in range(n)]:
+        return first, count, None
+    return first, count, kv
+
+
+def on_shards(fn, out_dims: tuple, *args, balance: bool = False):
     """``fn(*tensors)`` for work that is independent per (batch, head), such
     as attention, run on each rank's local shards where the first tensor
-    is a DTensor.  ``args`` are (tensor, batch dim, head dim or None); the
-    mesh dims that cut the first tensor's batch cut every tensor's batch,
-    those that cut its heads (dividing every tensor's heads) cut their
-    heads, and every other mesh dim replicates; ``out_dims`` are the result's
-    (batch dim, head dim).  A tensor without heads (a mask, a shared key)
-    is whole on each head shard, so its gradient there is a pending sum.
-    DTensor's own propagation of these einsums refuses to flatten a
-    sharded dim in torch 2.11."""
-    lead, lb, lh = args[0]
+    is a DTensor.  ``args`` are (tensor, batch dim, head dim or None[, row
+    dim or None[, key dim or None]]); ``out_dims`` are the result's (batch
+    dim, head dim[, row dim]), whose heads are the first tensor's.  Rows
+    are independent positions of the first tensor (attention's queries),
+    keys those that ``fn`` reduces over (its keys).
+
+    Each mesh dim is planned from every tensor (:func:`_plan`): it cuts
+    every tensor's batch, or the keys, or the heads, or nothing.  So a
+    pending sum on the first tensor is reduced onto the shards that the
+    others hold (a reduce-scatter of the small query), and a large tensor
+    (a KV cache cut on its batch or its sequence) is never gathered to suit
+    it.  Where the keys are cut (a sequence-cut decode cache), ``fn`` is
+    called with ``key_groups``, the (mesh, dim) groups over which it must
+    reduce its softmax's statistics, and its result is a pending sum
+    there.  Heads that a mesh dim does not divide are cut as DTensor cuts
+    such a dim (rank 0 the largest shard, as XLA pads them) or, with
+    ``balance``, in ``gcd(heads, ranks)`` groups, each group's ranks taking
+    equal parts of the local batch or of the rows (:func:`_balanced`): the
+    same work on every rank, as XLA spreads it, and the result a pending
+    sum there of each rank's block, zero-padded to the local shard.  The
+    caller chooses: attention, whose result goes straight to
+    :func:`merge_dim` (one reduce-scatter onto the width), balances; the
+    SSMs' reads of their state do not: balanced, RWKV6's read (each step's
+    result then meets a per-head norm, which all-reduces the padded block)
+    took its prefill_32k cell on 16 x 16 to 10x the reference's collective
+    bytes.  A tensor with fewer heads than the
+    first (GQA's keys and values) is cut with it where both divide the
+    mesh dims evenly; else it stays whole there and each rank slices,
+    locally, the KV heads of its own query heads (:func:`_kv_heads`), so
+    its gradient there is a pending sum.  A tensor without heads (a mask,
+    a shared key) is whole on each head shard, so its gradient there is a
+    pending sum too.  DTensor's own propagation of these einsums refuses
+    to flatten a sharded dim in torch 2.11."""
+    args = [tuple(a) + (None,) * (5 - len(a)) for a in args]
+    lead, lb, lh, lr, _ = args[0]
     tensors = [a[0] for a in args]
     if not isinstance(lead, DTensor):
         return fn(*tensors)
     mesh = lead.device_mesh
-    plan = []
-    for i, p in enumerate(lead.placements):
-        if isinstance(p, Shard) and p.dim == lb:
-            plan.append("batch")
-        elif isinstance(p, Shard) and p.dim == lh and all(
-                t.shape[h] % mesh.size(i) == 0 for t, _, h in args
-                if h is not None):
-            plan.append("head")
+    plan = _plan(args)
+    heads = lead.shape[lh]
+
+    def pl(b, h, r=None, k=None, grad=False, cut_heads=True):
+        return [Shard(b) if c == "batch" else
+                Shard(k) if c == "keys" and k is not None else
+                Shard(h) if c == "head" and h is not None and cut_heads else
+                Shard(r) if c == "rows" and r is not None else
+                Partial() if c in ("head", "parts", "keys", "rows") and grad
+                else Replicate() for c in plan]
+
+    head_dims = [i for i, c in enumerate(plan) if c == "head"]
+    parts = _balanced(args[0], heads, mesh, pl, plan) if balance else None
+    if parts is not None:
+        plan[head_dims[0]] = "parts"
+        head_dims = []
+    ways = 1
+    for i in head_dims:
+        ways *= mesh.size(i)
+    local_shape, offset = compute_local_shape_and_global_offset(
+        lead.shape, mesh, pl(lb, lh, lr))
+    # the query heads this rank computes and, balanced, its part of the
+    # local batch or of the rows
+    lo, n = (offset[lh], local_shape[lh]) if parts is None else parts[0]
+    slices, locals_ = [], []
+    for t, b, h, r, k in args:
+        cut = parts is None and (h is None or t.shape[h] == heads or (
+            heads % ways == 0 and t.shape[h] % ways == 0))
+        take = []
+        if parts is not None:
+            by_batch, first, count = parts[1]
+            if by_batch or r is not None:
+                take.append((b if by_batch else r, first, count, None))
+        if h is not None and not cut:
+            first, count, index = (lo, n, None) if t.shape[h] == heads \
+                else _kv_heads(lo, n, heads // t.shape[h])
+            take.append((h, first, count, index))
+        slices.append(take)
+        if isinstance(t, DTensor):
+            t = t.redistribute(mesh, pl(b, h, r, k, cut_heads=cut)).to_local(
+                grad_placements=pl(b, h, r, k, True, cut))
+        locals_.append(t)
+
+    def local(t, take):
+        if t.requires_grad:
+            t = _ContiguousGrad.apply(t)
+        for d, first, count, index in take:
+            t = t.narrow(d, first, count)
+            if index is not None:
+                t = t.index_select(d, torch.tensor(index, device=t.device))
+        return t
+
+    kw = {"key_groups": [(mesh, i) for i, c in enumerate(plan)
+                         if c == "keys"]} if "keys" in plan else {}
+    out = fn(*map(local, locals_, slices), **kw).contiguous()
+    ob, oh, *orow = out_dims
+    out_pl = [Partial() if c == "keys" else p
+              for c, p in zip(plan, pl(ob, oh, *orow))]
+    if parts is not None:           # this rank's block of the local result
+        by_batch, first, count = parts[1]
+        d, size = (ob, local_shape[lb]) if by_batch else \
+            (orow[0], local_shape[lr])
+        out = _pad_to(out, {d: (first, size - first - count),
+                            oh: (lo, heads - lo - n)})
+        out_pl = [Partial() if c == "parts" else p
+                  for c, p in zip(plan, out_pl)]
+    shape = list(out.shape)
+    if "batch" in plan:
+        shape[ob] = lead.shape[lb]
+    if "rows" in plan:
+        shape[orow[0]] = lead.shape[lr]
+    shape[oh] = heads
+    return _global(out, mesh, out_pl, shape)
+
+
+def _global(local: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """``local`` as this rank's shard of a DTensor of global ``shape``:
+    DTensor's ``from_local`` (and ``local_map``) would infer the shape as
+    if every shard were as large as this one."""
+    shape = torch.Size(shape)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=shape, stride=torch.empty(
+                                  shape, device="meta").stride())
+
+
+def _balanced(lead_arg, heads: int, mesh, pl, plan: list):
+    """For :func:`on_shards` with ``balance``: where one mesh dim of m
+    ranks cuts the heads and does not divide them, rank c of it computes
+    head group c // p of g = gcd(heads, m) groups on part c % p of p = m / g
+    equal parts of the local batch, or where those do not divide it, of
+    the first tensor's rows (its queries) -> ((first head, heads), (by
+    batch, first, count)); None where neither divides."""
+    lead, lb, _, lr, _ = lead_arg
+    head_dims = [i for i, c in enumerate(plan) if c == "head"]
+    if len(head_dims) != 1 or heads % mesh.size(head_dims[0]) == 0:
+        return None
+    i = head_dims[0]
+    m = mesh.size(i)
+    groups = math.gcd(heads, m)
+    p = m // groups
+    whole = [Replicate() if j == i else q
+             for j, q in enumerate(pl(lb, None))]
+    local = compute_local_shape_and_global_offset(lead.shape, mesh, whole)[0]
+    c = mesh.get_local_rank(i)
+    n = heads // groups
+    rows = None if lr is None or "rows" in plan else local[lr]
+    for by_batch, size in ((True, local[lb]), (False, rows)):
+        if size and size % p == 0:
+            return (c // p * n, n), (by_batch, c % p * size // p, size // p)
+    return None
+
+
+def _pad_to(t: torch.Tensor, pads: dict[int, tuple[int, int]]
+            ) -> torch.Tensor:
+    """``t`` padded with zeros on each dim of ``pads``, (before, after)."""
+    flat = []
+    for d in range(t.ndim - 1, min(pads) - 1, -1):
+        flat += list(pads.get(d, (0, 0)))
+    return F.pad(t, flat)
+
+
+def run_local(fn, mesh, ins, out_placements, shape) -> DTensor:
+    """``fn`` on each rank's local tensors -> a DTensor of global ``shape``
+    placed by ``out_placements``: ``ins`` are (DTensor, its placements for
+    ``fn``, its gradient's placements or None)."""
+    local = [t.redistribute(mesh, pl).to_local(grad_placements=g)
+             for t, pl, g in ins]
+    return _global(fn(*local), mesh, out_placements, shape)
+
+
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On a mesh where the rows looked up on a rank
+    move fewer bytes than the vocabulary would (a decode step's few
+    tokens), each rank looks up, locally, the rows of its own share of the
+    vocabulary, zeros for the tokens outside it, and the rows are summed
+    over the mesh dims that cut the vocabulary (one term not zero); the
+    table's width is gathered over the mesh dims that cut the tokens' batch
+    (as a product's FSDP weight is) and stays cut over the others, the
+    rows then cut alike.  Else the vocabulary is gathered and each rank
+    looks up its tokens whole."""
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    mesh = table.device_mesh
+    tokens = on_mesh(tokens, table)
+    tok_pl, w_pl, w_grad, out_pl = [], [], [], []
+    for tp, wp in zip(tokens.placements, table.placements):
+        batch = isinstance(tp, Shard) and tp.dim == 0
+        if isinstance(wp, Shard) and wp.dim == 0:            # the vocabulary
+            plan = (Replicate(), Shard(0), Shard(0), Partial())
+        elif isinstance(wp, Shard) and wp.dim == 1 and not batch:
+            plan = (Replicate(), Shard(1), Shard(1), Shard(tokens.ndim))
         else:
-            plan.append(None)
+            plan = (Shard(0), Replicate(), Partial(), Shard(0)) if batch \
+                else (Replicate(),) * 4
+        for out, p in zip((tok_pl, w_pl, w_grad, out_pl), plan):
+            out.append(p)
+    (rows, width), (first, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, w_pl)
+    n_tok = math.prod(compute_local_shape_and_global_offset(
+        tokens.shape, mesh, tok_pl)[0])
+    vocab = math.prod(compute_local_shape_and_global_offset(
+        table.shape, mesh, [Replicate() if p == Shard(0) else p
+                            for p in table.placements])[0])
+    if n_tok * width >= vocab:
+        return F.embedding(tokens, whole_dim(table, 0))
 
-    def pl(b, h, grad=False):
-        return [Shard(b) if k == "batch" else
-                Shard(h) if k == "head" and h is not None else
-                Partial() if k == "head" and grad else Replicate()
-                for k in plan]
+    def lookup(tok, w):
+        here = (tok >= first) & (tok < first + rows)
+        out = F.embedding(torch.where(here, tok - first, 0), w)
+        return torch.where(here[..., None], out,
+                           torch.zeros((), dtype=w.dtype, device=w.device))
 
-    def local(*ts):
-        return fn(*(_ContiguousGrad.apply(t) if t.requires_grad else t
-                    for t in ts)).contiguous()
-
-    return local_map(
-        local, out_placements=pl(*out_dims),
-        in_placements=tuple(pl(b, h) for _, b, h in args),
-        in_grad_placements=tuple(pl(b, h, True) for _, b, h in args),
-        device_mesh=mesh, redistribute_inputs=True)(*tensors)
+    out = run_local(lookup, mesh, [(tokens, tok_pl, None),
+                                   (table, w_pl, w_grad)], out_pl,
+                    (*tokens.shape, table.shape[1]))
+    return placed_as(out, out)
 
 
 def placed_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

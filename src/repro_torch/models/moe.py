@@ -20,11 +20,13 @@ any Pallas kernel.
 
 In a sharded model (DTensors, ``distributed/shardings.py``) the rank is
 global (the destinations replicated, ``radix_hist.ops.counting_rank``) and
-the experts are parallel: ``_experts`` runs through ``local_map`` on each
-rank's own expert stacks (cut over the ``model`` axis by the reference's
-``_RULES_3D``, gathered over the data axes) for every token, and its sum
+the experts are parallel (:func:`_dispatch_sharded`): each rank runs its own
+expert stacks (cut over the ``model`` axis by the reference's
+``_RULES_3D``) on its share of their capacity slots, receives only those
+slots' tokens (a reduce-scatter over the data axes) and hands each slot's
+output back to the rank that holds its token (an all-gather), and the sum
 over the experts stays pending over ``model`` until the residual's
-constraint reduces it.  All indexing then happens on local tensors, whose
+constraint reduces it.  All indexing happens on local tensors, whose
 backward torch 2.11's DTensor could not place.
 """
 from __future__ import annotations
@@ -32,11 +34,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.core.exchange import _dispatch_offsets
 from .common import (ArchConfig, dense_init, glu_act, on_mesh, param_dict,
-                     placed_as)
+                     placed_as, run_local, whole_dim)
 
 _I64 = torch.int64
 
@@ -109,52 +112,139 @@ def dispatch(p, cfg: ArchConfig, xt: torch.Tensor, top_w: torch.Tensor,
                                           flat))[:-1].reshape(e, cap)
     w = (p["w_gate"], p["w_up"], p["w_down"])
     if not isinstance(xt, DTensor):
-        return _experts(*w, xt, top_w, pair, cfg.act, k), slot, counts
-    # expert parallel: each rank runs its own experts (their stacks cut
-    # over the mesh dims that cut w_gate's first dim) on its share of their
-    # capacity slots (cut over every other mesh dim), reading every token;
-    # its sum into the tokens is pending over all the mesh dims, and so is
-    # its share of the stacks' gradient over the dims that do not cut them
+        x_slots = _slot_tokens(xt, pair, k, n, 0)
+        out_ec = _experts(*w, x_slots, cfg.act)
+        return _combine(out_ec, pair, top_w, k, n, 0), slot, counts
+    return _dispatch_sharded(w, xt, top_w, pair, cfg.act, k), slot, counts
+
+
+def _dispatch_sharded(w, xt: DTensor, top_w: DTensor, pair: DTensor,
+                      act: str, k: int) -> DTensor:
+    """:func:`dispatch`'s three stages on a mesh.  The experts' stacks are
+    cut over the mesh dims that cut ``w_gate``'s first dim (expert
+    parallel), the tokens over those that cut ``xt``'s rows (the data
+    dims), and each rank runs its own experts on its share of their
+    capacity slots (cut over every other mesh dim):
+
+    1. each rank fills the slots of its experts whose tokens it holds, the
+       rest zero, and a reduce-scatter over the token dims hands each rank
+       its own slots' tokens and no others;
+    2. the experts run on those slots (:func:`_experts_on_mesh`);
+    3. an all-gather over the token dims hands each rank its experts'
+       slots, and each adds, weighted, those of its own tokens: the sum
+       over the experts stays pending over the expert dims until the
+       residual's constraint reduces it.
+
+    Every index is read on local tensors, whose backward torch 2.11's
+    DTensor could not place."""
     mesh = xt.device_mesh
-    ep = [isinstance(q, Shard) and q.dim == 0 for q in w[0].placements]
-    cut = [Shard(0) if x else Replicate() for x in ep]
-    slots = [Shard(0) if x else Shard(1) for x in ep]
-    whole = [Replicate()] * mesh.ndim
-    partial = [Partial()] * mesh.ndim
-    w_grad = [Shard(0) if x else Partial() for x in ep]
-    out = local_map(_experts, out_placements=partial,
-                    in_placements=(cut, cut, cut, whole, whole, slots, None,
-                                   None),
-                    in_grad_placements=(w_grad, w_grad, w_grad, partial,
-                                        partial, slots, None, None),
-                    device_mesh=mesh, redistribute_inputs=True)(
-        *w, xt, top_w, pair, cfg.act, k)
-    return out, slot, counts
-
-
-def _experts(w_gate, w_up, w_down, xt, top_w, pair, act: str, k: int):
-    """The routed experts' summed output (T, d): ``pair`` (E, C) holds the
-    (token, expert) pair in each of the experts' slots, T k where empty;
-    the weights are those experts' stacks."""
     e, cap = pair.shape
-    t, d = xt.shape
     n = top_w.numel()
-    pair = pair.reshape(e * cap)
-    slot_used = pair < n
-    pair = torch.where(slot_used, pair, 0)
-    # empty slots -> token 0, weight 0, as the reference's scatters leave them
-    slot_token = pair // k
-    slot_w = torch.where(slot_used, top_w.reshape(n)[pair], 0.0)
-    gathered = xt[slot_token].reshape(e, cap, d)
-    gathered = torch.where(slot_used.reshape(e, cap, 1), gathered,
-                           torch.zeros((), dtype=xt.dtype, device=xt.device))
+    ep = [isinstance(q, Shard) and q.dim == 0 for q in w[0].placements]
+    tok = [not x and isinstance(q, Shard) and q.dim == 0
+           for x, q in zip(ep, xt.placements)]
+    rows = [Shard(0) if c else Replicate() for c in tok]
+    t0 = compute_local_shape_and_global_offset(xt.shape, mesh, rows)[1][0]
+    mine = [Shard(0) if x else Replicate() for x in ep]
+    row_grad = [Shard(0) if c else Partial() if x else Replicate()
+                for c, x in zip(tok, ep)]
+    x_slots = run_local(
+        lambda x, q: _slot_tokens(x, q, k, n, t0), mesh,
+        [(xt, rows, row_grad), (pair, mine, None)],
+        [Shard(0) if x else Partial() if c else Replicate()
+         for x, c in zip(ep, tok)], (e, cap, xt.shape[1]))
+    out_ec = _experts_on_mesh(w, x_slots, act, ep)
+    return run_local(
+        lambda o, q, tw: _combine(o, q, tw, k, n, t0), mesh,
+        [(out_ec.redistribute(mesh, mine), mine,
+          [Shard(0) if x else Partial() if c else Replicate()
+           for x, c in zip(ep, tok)]),
+         (pair, mine, None), (top_w, rows, row_grad)],
+        [Shard(0) if c else Partial() if x else Replicate()
+         for c, x in zip(tok, ep)], tuple(xt.shape))
 
-    h = glu_act(torch.bmm(gathered, w_gate), torch.bmm(gathered, w_up), act)
-    out_ec = torch.bmm(h, w_down).reshape(e * cap, d)
 
-    # empty slots carry weight 0, so their adds to token 0 change nothing
-    return torch.zeros((t, d), dtype=xt.dtype, device=xt.device).index_add(
-        0, slot_token, (out_ec.float() * slot_w[:, None]).to(xt.dtype))
+def _experts_on_mesh(w, x_slots: DTensor, act: str, ep: list) -> DTensor:
+    """The experts' GLU on each rank's own experts (the mesh dims ``ep``)
+    and share of their slots -> (E, C, d), cut as the slots.  Where the
+    stacks are also cut on the model width (FSDP over the data dims) they
+    are gathered there and the slots cut on their capacity, or, where that
+    moves more bytes than the slots' products (2 C f against 3 d f an
+    expert: a decode step's few slots), they stay in place: the slots are
+    cut on the width, the gate and up products summed over it (an
+    all-reduce) and the down product cut on it, as the reference's plan
+    keeps them."""
+    mesh = x_slots.device_mesh
+    e, cap, d = x_slots.shape
+    f = w[0].shape[2]
+    keep = [not x and mesh.size(i) > 1 and 2 * cap < 3 * d and
+            all(isinstance(q, Shard) and q.dim == dim
+                for q, dim in zip(pl, (1, 1, 2)))
+            for i, (x, *pl) in enumerate(zip(ep, *(t.placements
+                                                  for t in w)))]
+
+    def placed(dim, grad=False):
+        return [Shard(0) if x else Shard(dim) if s else
+                Partial() if grad else Replicate() for x, s in zip(ep, keep)]
+
+    slots = [Shard(0) if x else Shard(2) if s else Shard(1)
+             for x, s in zip(ep, keep)]
+    x_slots = x_slots.redistribute(mesh, slots)
+    if not any(keep):
+        return run_local(
+            lambda *t: _experts(*t, act), mesh,
+            [(t, placed(0), placed(0, True)) for t in w] +
+            [(x_slots, slots, slots)], slots, (e, cap, d))
+    gate_up = run_local(
+        lambda g, u, x: torch.cat([torch.bmm(x, g), torch.bmm(x, u)], -1),
+        mesh, [(w[0], placed(1), placed(1, True)),
+               (w[1], placed(1), placed(1, True)), (x_slots, slots, slots)],
+        [Shard(0) if x else Partial() if s else Shard(1)
+         for x, s in zip(ep, keep)], (e, cap, 2 * f))
+    summed = [Shard(0) if x else Replicate() if s else Shard(1)
+              for x, s in zip(ep, keep)]
+    return run_local(
+        lambda dn, gu: torch.bmm(glu_act(gu[..., :f], gu[..., f:], act), dn),
+        mesh, [(w[2], placed(2), placed(2, True)),
+               (gate_up.redistribute(mesh, summed), summed,
+                [Shard(0) if x else Partial() if s else Shard(1)
+                 for x, s in zip(ep, keep)])],
+        slots, (e, cap, d))
+
+
+def _slot_tokens(xt, pair, k: int, n: int, t0: int) -> torch.Tensor:
+    """The tokens of the experts' capacity slots (E, C, d): ``pair`` (E, C)
+    holds the (token, expert) pair in each slot, ``n`` (the pairs) where
+    empty; ``xt`` holds tokens t0 .. t0 + len - 1, and a slot whose token
+    is not among them (or that is empty) takes zeros, as the reference's
+    scatters leave an empty slot."""
+    tok = pair // k
+    here = (pair < n) & (tok >= t0) & (tok < t0 + xt.shape[0])
+    rows = xt[torch.where(here, tok - t0, 0)]
+    return torch.where(here[..., None], rows,
+                       torch.zeros((), dtype=xt.dtype, device=xt.device))
+
+
+def _experts(w_gate, w_up, w_down, x_slots, act: str) -> torch.Tensor:
+    """The experts' GLU on their slots' tokens (E, C, d) -> (E, C, d)."""
+    h = glu_act(torch.bmm(x_slots, w_gate), torch.bmm(x_slots, w_up), act)
+    return torch.bmm(h, w_down)
+
+
+def _combine(out_ec, pair, top_w, k: int, n: int, t0: int) -> torch.Tensor:
+    """The slots' outputs (E, C, d) summed into their tokens, each weighted
+    by its pair's routing weight, for the tokens t0 .. t0 + len - 1 that
+    ``top_w`` (len, k) holds -> (len, d) in the outputs' dtype.  An empty
+    slot, or one of another rank's token, adds weight 0 to row 0."""
+    d = out_ec.shape[-1]
+    tok = pair // k
+    here = (pair < n) & (tok >= t0) & (tok < t0 + top_w.shape[0])
+    w = torch.where(here, top_w.reshape(-1)[torch.where(here, pair - t0 * k,
+                                                         0)], 0.0)
+    out = (out_ec.float() * w[..., None]).to(out_ec.dtype)
+    return torch.zeros((top_w.shape[0], d), dtype=out_ec.dtype,
+                       device=out_ec.device).index_add(
+        0, torch.where(here, tok - t0, 0).reshape(-1), out.reshape(-1, d))
 
 
 def moe_forward(p, cfg: ArchConfig, x: torch.Tensor, padded_experts: int,
@@ -176,10 +266,12 @@ def moe_forward(p, cfg: ArchConfig, x: torch.Tensor, padded_experts: int,
 
     # load-balancing aux (GShard): E * sum_e f_e * p_e
     me = probs.mean(dim=0)
+    # the destinations whole, as the counting rank takes them: torch
+    # 2.11's DTensor pairs a cut index with a whole source
     ce = on_mesh(torch.zeros(e, dtype=torch.float32, device=x.device),
                  x).index_add(
-        0, top_e.reshape(t * k), on_mesh(torch.full((t * k,), 1.0 / (t * k),
-                                                    device=x.device), x))
+        0, whole_dim(top_e.reshape(t * k), 0),
+        on_mesh(torch.full((t * k,), 1.0 / (t * k), device=x.device), x))
     aux = {"lb_loss": e * torch.sum(me * ce),
            "drop_frac": 1.0 - (slot < cap).float().mean(),
            "expert_load": counts}

@@ -17,9 +17,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate
 
-from .common import (ArchConfig, dense_init, merge_dim, on_mesh, on_shards,
-                     param_dict, split_dim, whole_dim)
+from .common import (ArchConfig, cut_dims, cut_over, dense_init, merge_dim,
+                     on_mesh, on_shards, param_dict, placed_as, split_dim,
+                     whole_dim)
 
 F32 = torch.float32
 
@@ -95,16 +97,36 @@ def mamba2_forward(p, cfg: ArchConfig, x: torch.Tensor,
                    ssm_state: torch.Tensor | None = None):
     """x (B, S, D) -> (y (B, S, D), (conv_state, ssm_state)); the SSM
     state (B, H, hd, N) float32 runs ``h' = decay h + dt x (x) b`` and
-    ``y = h c`` one time step at a time."""
+    ``y = h c`` one time step at a time.
+
+    On a mesh the projection's width is cut evenly, across the boundaries
+    of z, x, (B, C) and dt: it is gathered once, and z, x (its heads) and
+    dt are cut again, locally, over the same mesh dims, while B and C,
+    which every head reads, stay whole.  The depthwise convolution runs on
+    x's channels and on (B, C)'s apart, each against its own rows of the
+    kernel, so every rank works on its own heads only."""
     b, s, _ = x.shape
     d_inner, heads, hd = _m2_dims(cfg)
     n = cfg.ssm_state
-    z, xbc, dt = _m2_split(cfg, x @ p["w_in"])
-    xbc, conv_out = _causal_depthwise_conv(xbc, p["conv_w"], p["conv_b"],
-                                           conv_state)
-    xs = split_dim(xbc[..., :d_inner], 2, heads)             # (B,S,H,hd)
-    bmat = xbc[..., d_inner:d_inner + n].float()             # (B,S,N)
-    cmat = xbc[..., d_inner + n:].float()                    # (B,S,N)
+    zxbcdt = x @ p["w_in"]
+    cut = cut_dims(zxbcdt, 2)
+    z, xbc, dt = _m2_split(cfg, whole_dim(zxbcdt, 2))
+    z, dt = cut_over(z, 2, cut), cut_over(dt, 2, cut)
+    cw, cb = whole_dim(p["conv_w"], 1), whole_dim(p["conv_b"], 0)
+    st = (None, None) if conv_state is None else \
+        (cut_over(conv_state[..., :d_inner], 2, cut),
+         conv_state[..., d_inner:])
+    xs, xs_state = _causal_depthwise_conv(
+        cut_over(xbc[..., :d_inner], 2, cut), cut_over(cw[:, :d_inner], 1,
+                                                       cut),
+        cut_over(cb[:d_inner], 0, cut), st[0])
+    bc, bc_state = _causal_depthwise_conv(xbc[..., d_inner:],
+                                          cw[:, d_inner:], cb[d_inner:],
+                                          st[1])
+    conv_out = torch.cat([whole_dim(xs_state, 2), bc_state], dim=-1)
+    xs = split_dim(xs, 2, heads)                             # (B,S,H,hd)
+    bmat = bc[..., :n].float()                               # (B,S,N)
+    cmat = bc[..., n:].float()                               # (B,S,N)
     dt = F.softplus(dt.float() + p["dt_bias"])               # (B,S,H)
     a = -torch.exp(p["a_log"])                               # (H,)
     decay = torch.exp(dt * a)                                # (B,S,H)
@@ -114,11 +136,18 @@ def mamba2_forward(p, cfg: ArchConfig, x: torch.Tensor,
         on_mesh(torch.zeros((b, heads, hd, n), dtype=F32, device=x.device), x)
     decay, dtx, bmat, cmat = (whole_dim(t, 1) for t in (decay, dtx, bmat,
                                                         cmat))
+    # the state placed as the step's products, so DTensor moves none of
+    # them; mesh dims that cut neither its batch nor its heads (batch-1
+    # decode) cut its head dim, as the reference's plan cuts it
+    h = placed_as(h, dtx[:, 0, :, :, None])
+    idle = [i for i, q in enumerate(getattr(h, "placements", ()))
+            if isinstance(q, Replicate)]
+    h, dtx = cut_over(h, 2, idle), cut_over(dtx, 3, idle)
 
     def step(i, h):
         h = h * decay[:, i, :, None, None] + \
             dtx[:, i, :, :, None] * bmat[:, i, None, None, :]
-        return h, on_shards(_read_state, (0, 1), (h, 0, 1),
+        return h, on_shards(_read_state, (0, 1, 2), (h, 0, 1, 2),
                             (cmat[:, i], 0, None))
 
     h, ys = scan(step, h, s)
@@ -194,7 +223,9 @@ def _rwkv_streams(p, x: torch.Tensor, x_prev: torch.Tensor):
     def mix(mu):
         return x + (shifted - x) * mu
 
-    r = mix(p["mu_r"]) @ p["wr"]
+    # wr has no sharding rule (replicated, as the reference's); cut as wk,
+    # each rank computes its own heads' r, as XLA partitions that product
+    r = mix(p["mu_r"]) @ placed_as(p["wr"], p["wk"])
     k = mix(p["mu_k"]) @ p["wk"]
     v = mix(p["mu_v"]) @ p["wv"]
     g = mix(p["mu_g"]) @ p["wg"]
@@ -222,7 +253,15 @@ def rwkv6_forward(p, cfg: ArchConfig, x: torch.Tensor, state=None):
     vh = split_dim(v, 2, heads).float()
     wh = split_dim(w, 2, heads)
     u = p["u"][None, :, :, None]
-    rh, kh, vh, wh = (whole_dim(t, 1) for t in (rh, kh, vh, wh))
+    # the streams cut on their batch where the carried state is (a decode
+    # cache: a reduce-scatter of the products' pending sums), any other
+    # pending sum reduced (DTensor would reduce-scatter a batch of one onto
+    # ranks that hold none of it), and the state then placed as the step's
+    # products, so DTensor moves none of them
+    rh, kh, vh, wh = (placed_as(t, t) for t in (
+        cut_over(whole_dim(t, 1), 0, cut_dims(wkv, 0))
+        for t in (rh, kh, vh, wh)))
+    wkv = placed_as(wkv, kh[:, 0, :, :, None])
 
     def step(i, wkv):
         kv = kh[:, i, :, :, None] * vh[:, i, :, None, :]        # (B,H,hd,hd)

@@ -45,19 +45,27 @@ trainer turns them on (``model.requires_grad_(True)``).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from torch.utils._pytree import tree_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.table import resolve_device
 from . import attention as A
 from . import ssm as S
-from .common import (ArchConfig, MetaGenerator, dense_init, glu_act,
-                     on_mesh, rms_norm, softmax_cross_entropy, whole_dim)
+from .common import (ArchConfig, MetaGenerator, dense_init, embed_lookup,
+                     glu_act, on_mesh, rms_norm, softmax_cross_entropy,
+                     whole_dim)
 from .moe import init_moe, moe_forward
 
 F32 = torch.float32
+
+
+def _whole_batch_of_one(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor of batch 1 taken whole on its batch: the reference's
+    specs cut even a batch of one over a data axis of one rank, and DTensor
+    will not flatten a cut singleton dim into a product's rows."""
+    return whole_dim(t, 0) if t.ndim and t.shape[0] == 1 else t
 
 
 def segments(cfg: ArchConfig) -> list[tuple[str, int]]:
@@ -347,10 +355,8 @@ class Model(nn.Module):
         return self._mask_vocab_pad(x @ head)
 
     def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        # the vocabulary gathered first: the backward of DTensor's
-        # vocab-parallel lookup (a masked pending sum) fails in torch 2.11
-        x = F.embedding(on_mesh(tokens.to(self.device), self.embed),
-                        whole_dim(self.embed, 0))
+        x = embed_lookup(_whole_batch_of_one(tokens.to(self.device)),
+                         self.embed)
         if self.cfg.embed_scale:       # the scale rounded to x's dtype first
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
@@ -429,6 +435,7 @@ class Model(nn.Module):
                            for _ in self.shared_after]}
 
     def _with_cache(self, x, cache, pos, positions, n_prefix, decode):
+        cache = tree_map(_whole_batch_of_one, cache)
         new = {"layers": [], "shared": []}
         shared = iter(cache["shared"])
         for i, layer in enumerate(self.layers):

@@ -1,8 +1,9 @@
 """Import hygiene of the port: ``repro_torch`` (its serving and
 approximate layers, the SF 1000 dry-run, every model family and the
 training path included), ``chip_smoke.py``, the port's examples
-(``examples/torch_*.py``) and its timing tools (``tools/time_*.py``) never
-import ``jax`` or anything of the reference package ``repro``; every
+(``examples/torch_*.py``), its timing tools (``tools/time_*.py``) and
+``tools/compare_dryrun.py`` never import ``jax`` or anything of the
+reference package ``repro``; every
 example resolves its device through ``core/table.py::resolve_device``,
 ``cuda`` unless asked for another."""
 import os
@@ -99,8 +100,8 @@ print("ok")
 
 def test_sources_import_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("time_*.py")) \
-        + _EXAMPLES
+        [ROOT / "chip_smoke.py", ROOT / "tools" / "compare_dryrun.py"] + \
+        sorted((ROOT / "tools").glob("time_*.py")) + _EXAMPLES
     assert len(files) > 15 and len(_EXAMPLES) == 7
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _FORBIDDEN.finditer(f.read_text())]

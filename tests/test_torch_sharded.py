@@ -15,6 +15,10 @@ and one jitted train step on the same weights and batch, and, for the
 trainer, the reference's steps from the trainer's own seed-0 weights
 carried the other way.  The reference's numbers do not depend on its mesh
 (a sharding changes where it computes, not what), so it runs unsharded.
+The same group also runs ``tools/check_sharded_cpu.py``'s cases, on
+meshes (1, 4) and (2, 2), with the reference's noised weights for their
+configs, against the unsharded port and against the reference's forward,
+train step, prefill and decode steps on the same weights and tokens.
 
 Tolerances, the same against both: logits within relative L2 1e-5
 (readings 6.1e-7 to 1.7e-6 against the unsharded port, 6.4e-7 to 1.9e-6
@@ -22,19 +26,25 @@ against the reference: the sharded products sum in another order); a
 train step's loss within relative 1e-6 (readings up to 1.5e-7) and its
 gradients' global norm within 1e-4 (up to 2.0e-6; ``test_torch_train.py``
 holds each gradient leaf to 1e-4); the parameters after the step within
-relative L2 1e-5 over the whole tree (up to 1.3e-6).  Leaf by leaf the step
-is not held so tight: AdamW's first step moves a parameter by about lr *
-sign(g), and where a gradient element is a near-cancelling sum the
-summation order of the shards flips or scales it, so a zero-initialised
-leaf (``mu_k``, ``conv_b``) can move apart by a large share of its own norm
-while the whole tree stays close.
+relative L2 1e-5 over the whole tree (up to 1.3e-6).  The check cases read,
+against the reference, logits 6.7e-7 to 1.8e-6 (every prefill and decode
+step), loss up to 7.1e-8, norm up to 2.5e-7, tree up to 1.2e-6; against the
+unsharded port their own tool's limit, 1e-5 on each reading, holds them
+(up to 1.3e-6).  Leaf by leaf the step is not held so tight: AdamW's first
+step moves a parameter by about lr * sign(g), and where a gradient element
+is a near-cancelling sum the summation order of the shards flips or scales
+it, so a zero-initialised leaf (``mu_k``, ``conv_b``) can move apart by a
+large share of its own norm while the whole tree stays close.
 """
 from __future__ import annotations
 
 import datetime
+import functools
+import importlib.util
 import os
 import pickle
 import traceback
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -68,6 +78,29 @@ NORM_RTOL = 1e-4
 PARAM_REL_L2 = 1e-5
 TRAIN_STEPS = 3
 STEP_ADAMW = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+# the cases a one-card mesh cannot reach (heads that the model axis does
+# not divide, caches cut on their sequence, the experts' stacks kept in
+# place or gathered), each against the unsharded model: the cases and
+# checks of tools/check_sharded_cpu.py, run here on the same group
+CHECK_TOOL = Path(__file__).resolve().parents[1] / "tools" / \
+    "check_sharded_cpu.py"
+
+
+def _check_tool():
+    spec = importlib.util.spec_from_file_location("check_sharded_cpu",
+                                                  CHECK_TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CHECKS = [name for name, *_ in _check_tool()._cases()]
+
+
+def _check_weights(arch, over, tp) -> str:
+    """The file of the reference's weights for a check case's config."""
+    tag = "".join(f"_{k}{v}" for k, v in sorted(over.items()))
+    return f"check_{arch}{tag}_tp{tp}.pt"
 TRAIN_ARGS = ["--smoke", "--device", "cpu", "--batch", str(B), "--seq",
               str(S), "--ckpt-every", "100"]
 
@@ -216,6 +249,15 @@ def _worker(rank: int, world: int, tmp: str) -> None:
         for arch in SEQ_PARALLEL_ARCHS:
             record(("seq_parallel", arch), _forward, arch, mesh, axes, tmp,
                    True)
+        check = _check_tool()
+        meshes = {(2, TP): mesh}
+        for name, shape, fn, args in check._cases():
+            if shape not in meshes:
+                meshes[shape] = world_mesh(world, shape[1], False, "cpu")
+            state = torch.load(os.path.join(tmp, _check_weights(
+                args[0], args[1], shape[1])))
+            record(("check", name), functools.partial(fn, state=state),
+                   args[0], meshes[shape], *args[1:])
         pod = world_mesh(world, 2, True, "cpu")
         pod_axes = sh.MeshAxes(fsdp=("pod", "data"))
         for arch in MULTI_POD_ARCHS:
@@ -292,6 +334,53 @@ def _reference(trees: dict) -> dict:
     return out
 
 
+def _reference_checks(trees: dict) -> dict:
+    """The reference's outputs for ``tools/check_sharded_cpu.py``'s cases on
+    the weights written for the ranks, keyed as the ranks record them: the
+    logits of a forward, the prefill's and each decode step's, or a train
+    step's loss, norm and parameters."""
+    check = _check_tool()
+    out = {}
+    for name, shape, fn, args in check._cases():
+        arch, over, *rest = args
+        cfg = check.config(arch, over)
+        ref = RefModel(cfg, expert_pad=shape[1])
+        params = jax.tree.map(jnp.asarray, trees[_check_weights(
+            arch, over, shape[1])])
+
+        def toks(batch, seq):
+            return jnp.asarray(check.tokens_of(cfg, batch, seq).numpy()
+                               .astype(np.int32))
+        if fn is check.forward:
+            seq = rest[0] if rest else check.S
+            want = {"logits": np.asarray(ref._forward_aux(
+                params, toks(check.B, seq))[0])}
+        elif fn is check.train_step:
+            tokens = toks(check.B, check.S)
+            step = jax.jit(ref_trainstep.make_train_step(
+                ref, ref_opt.AdamWConfig(**check.ADAMW)))
+            new, _, metrics = step(params, ref_trainstep.init_train_state(
+                ref, params), {"tokens": tokens, "labels": tokens})
+            want = {"loss": float(metrics["loss"]),
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "params": convert.from_jax_params(
+                        cfg, jax.tree.map(np.asarray, new))}
+        else:
+            batch, = rest
+            n = check.PROMPT + check.STEPS
+            tokens = toks(batch, n)
+            logits, cache = ref.prefill(
+                params, tokens[:, :check.PROMPT],
+                ref.init_cache(batch, n, dtype=jnp.float32))
+            want = {"logits": [np.asarray(logits)]}
+            for pos in range(check.PROMPT, n):
+                logits, cache = ref.decode(params, tokens[:, pos:pos + 1],
+                                           cache, pos)
+                want["logits"].append(np.asarray(logits))
+        out[name] = want
+    return out
+
+
 def _reference_trainer(steps: int) -> list[float]:
     """The reference's losses for ``launch/train.py --smoke`` on the (2, 2)
     mesh: its seed-0 weights (experts padded to 2), its batches and AdamW
@@ -330,10 +419,19 @@ def runs(tmp_path_factory):
         trees[arch] = _noisy_params(RefModel(cfg, expert_pad=TP), SEED)
         torch.save(convert.from_jax_params(cfg, trees[arch]),
                    tmp / f"{arch}.pt")
+    check = _check_tool()
+    for _, shape, _, (arch, over, *_) in check._cases():
+        name = _check_weights(arch, over, shape[1])
+        if name not in trees:
+            cfg = check.config(arch, over)
+            trees[name] = _noisy_params(RefModel(cfg, expert_pad=shape[1]),
+                                        SEED)
+            torch.save(convert.from_jax_params(cfg, trees[name]), tmp / name)
     ctx = mp.spawn(_worker, args=(WORLD, str(tmp)), nprocs=WORLD,
                    join=False)
     try:
         reference = _reference(trees)
+        reference["check"] = _reference_checks(trees)
     finally:
         while not ctx.join():
             pass
@@ -378,6 +476,19 @@ def test_seq_parallel_equals_off(runs, arch):
     assert _rel_l2(on["logits"], off["logits"]) <= FWD_REL_L2
 
 
+@pytest.mark.parametrize("name", CHECKS)
+def test_sharded_path_matches_unsharded_where_the_mesh_cuts_more(runs,
+                                                                  name):
+    """``tools/check_sharded_cpu.py``'s cases on this group: uneven heads
+    on (1, 4) (forward, a train step, decodes of batch 3 and 1: ROADMAP
+    C11), decodes on (2, 2) with caches cut on their sequence or batch,
+    the experts' stacks gathered; each reading (relative L2 of the logits;
+    of the loss, the gradients' norm and the parameters after a step) at
+    most the tool's tolerance."""
+    res = _get(runs, ("check", name))["readings"]
+    assert max(res.values()) <= _check_tool().TOL, res
+
+
 @pytest.mark.parametrize("arch", MULTI_POD_ARCHS)
 def test_multi_pod_mesh_matches_unsharded(runs, arch):
     res = _get(runs, ("multi_pod_forward", arch))
@@ -388,6 +499,35 @@ def test_multi_pod_mesh_matches_unsharded(runs, arch):
 # ---------------------------------------------------------------------------
 # against the reference
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", CHECKS)
+def test_sharded_path_matches_reference_where_the_mesh_cuts_more(runs, name):
+    """The same cases held against the reference on the same weights and
+    tokens: each logits tensor (a forward's; the prefill's and each decode
+    step's) within ``FWD_REL_L2``, a train step's loss, norm and parameters
+    within the limits of the steps above."""
+    got = _get(runs, ("check", name))["outputs"]
+    want = runs["reference"]["check"][name]
+    if "params" in want:
+        assert abs(got["loss"] - want["loss"]) <= \
+            LOSS_RTOL * abs(want["loss"]), (got["loss"], want["loss"])
+        assert abs(got["grad_norm"] - want["grad_norm"]) <= \
+            NORM_RTOL * want["grad_norm"], (got["grad_norm"],
+                                            want["grad_norm"])
+        rel = _tree_rel_l2(got["params"], want["params"])
+        assert rel <= PARAM_REL_L2, rel
+        return
+    logits = got["logits"] if isinstance(got["logits"], list) \
+        else [got["logits"]]
+    wants = want["logits"] if isinstance(want["logits"], list) \
+        else [want["logits"]]
+    assert len(logits) == len(wants)
+    for g, w in zip(logits, wants):
+        w = torch.tensor(w)
+        assert g.shape == w.shape, (g.shape, w.shape)
+        rel = _rel_l2(g, w)
+        assert rel <= FWD_REL_L2, rel
+
 
 def _ref_logits(runs, arch) -> torch.Tensor:
     return torch.tensor(runs["reference"][("forward", arch)])
