@@ -17,8 +17,10 @@ Queries are written once against the Context API and run on three engines:
 identical results and share the per-plan build-side cache.
 
 Everything a query computes stays on the device as tensors — counts and the
-overflow flag included — until :func:`run_local` reads the result, so a
-query waits on the card once.
+overflow flag included — until :func:`run_local` reads the result.  The host
+still waits on the card where it uploads a host value (a lookup table, a
+fill, a float literal): each such place is a ``repro_torch.tracing.sync``
+site, counted in ``tracing.syncs``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from . import comm
 from . import exchange as ex
 from . import planner
@@ -371,7 +374,9 @@ class LocalContext(_BaseContext):
         say); the reference's gather clamps such an index where torch would
         raise, so indices are clamped into the table — valid rows are always
         in range."""
-        lut = torch.from_numpy(np.ascontiguousarray(values)).to(self.device)
+        with tracing.sync("lookup"):
+            lut = torch.from_numpy(np.ascontiguousarray(values)) \
+                .to(self.device)
         return lut[idx.clamp(0, lut.shape[0] - 1)]
 
     def cast(self, x, dtype: str):
@@ -381,9 +386,13 @@ class LocalContext(_BaseContext):
         """``torch.where`` with the reference's float64 promotion: a Python
         float branch makes the result float64 (torch would pick float32)."""
         if isinstance(a, float) or isinstance(b, float):
-            a, b = (torch.tensor(x, dtype=torch.float64, device=self.device)
-                    if isinstance(x, float) else lift_f64(x) for x in (a, b))
+            a, b = (self._f64(x) if isinstance(x, float) else lift_f64(x)
+                    for x in (a, b))
         return torch.where(cond, a, b)
+
+    def _f64(self, x: float) -> torch.Tensor:
+        with tracing.sync("where_f64"):
+            return torch.tensor(x, dtype=torch.float64, device=self.device)
 
     def scan(self, name):
         self._chaos_point("scan")
@@ -741,7 +750,8 @@ def _as_column(v, device: torch.device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.reshape(1)
     dtype = torch.float64 if isinstance(v, float) else None
-    return torch.as_tensor(v, dtype=dtype, device=device).reshape(1)
+    with tracing.sync("scalar_result"):
+        return torch.as_tensor(v, dtype=dtype, device=device).reshape(1)
 
 
 def result_table(out, device: torch.device) -> Table:
@@ -769,9 +779,12 @@ def run_local(query_fn, db: Database, join_method: str = "sorted",
                        join_method=join_method, wire_format=wire_format)
     ctx.chaos = chaos
     result = to_numpy(result_table(query_fn(ctx), dev))
-    if bool(ctx.corrupt):
+    with tracing.sync("flags"):
+        corrupt = bool(ctx.corrupt)
+    if corrupt:
         raise wi.CorruptPayload("local run: payload integrity check failed")
-    overflow = bool(ctx.overflow)
+    with tracing.sync("flags"):
+        overflow = bool(ctx.overflow)
     if return_overflow:
         return result, ctx.stats, overflow
     if overflow:

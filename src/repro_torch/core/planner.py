@@ -75,6 +75,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from . import plan as P
 
 __all__ = [
@@ -1407,16 +1408,17 @@ class _Executor:
     def _exec(self, node: P.Node):
         if id(node) in self.memo:
             return self.memo[id(node)]
-        store = getattr(self.ctx, "lineage", None)
-        if store is not None and _is_exchange_node(node):
-            tag = self._tags[id(node)]
-            # checked BEFORE recursing: a hit skips the whole subtree
-            out = store.load(tag, self.ctx)
-            if out is None:
+        with tracing.span("engine", type(node).__name__):
+            store = getattr(self.ctx, "lineage", None)
+            if store is not None and _is_exchange_node(node):
+                tag = self._tags[id(node)]
+                # checked BEFORE recursing: a hit skips the whole subtree
+                out = store.load(tag, self.ctx)
+                if out is None:
+                    out = self._exec_inner(node)
+                    store.save(tag, out, self.ctx, node=node)
+            else:
                 out = self._exec_inner(node)
-                store.save(tag, out, self.ctx, node=node)
-        else:
-            out = self._exec_inner(node)
         self.memo[id(node)] = out
         return out
 

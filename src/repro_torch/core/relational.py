@@ -35,6 +35,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import tracing
 from .table import KEY_SENTINEL, Table
 from repro_torch.kernels.hash_group import ops as _hg_ops
 from repro_torch.kernels.hash_probe import ops as _hp_ops
@@ -301,9 +302,9 @@ def left_join(probe: Table, build: Table, probe_on, build_on,
     cols = dict(probe.columns)
     for name in take:
         gathered = build[name][bidx]
-        fill = torch.tensor(defaults[name], dtype=gathered.dtype,
-                            device=gathered.device)
-        cols[name] = torch.where(matched, gathered, fill)
+        cols[name] = torch.where(
+            matched, gathered, _scalar(defaults[name], gathered,
+                                       "left_default"))
     cols["__matched"] = matched
     return Table(cols, probe.count, probe.valid)
 
@@ -332,6 +333,13 @@ def _dtype_max(dt: torch.dtype):
 
 def _dtype_min(dt: torch.dtype):
     return float("-inf") if dt.is_floating_point else torch.iinfo(dt).min
+
+
+def _scalar(value, like: torch.Tensor, site: str) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype on its device: a copy
+    from the host, which waits on the card (``tracing.sync(site)``)."""
+    with tracing.sync(site):
+        return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
 def group_aggregate(t: Table, key_cols: Sequence[str],
@@ -406,8 +414,7 @@ def _reduce_aggs(t: Table, aggs, gid: torch.Tensor, dom: int,
             sum_batches.setdefault(v.dtype, []).append((out_name, v))
         elif op in ("min", "max"):
             fill = _dtype_max(v.dtype) if op == "min" else _dtype_min(v.dtype)
-            v = torch.where(in_dom, v, torch.tensor(fill, dtype=v.dtype,
-                                                    device=v.device))
+            v = torch.where(in_dom, v, _scalar(fill, v, "minmax_fill"))
             reduced[out_name] = _ss_ops.segment_reduce(gid, v, dom, op=op)
         else:
             raise ValueError(f"unknown agg op {op!r}")
@@ -560,8 +567,7 @@ def _group_aggregate_sorted(t: Table, key_cols: Sequence[str], aggs,
                     .index_add_(0, seg, v)
         elif op in ("min", "max"):
             ident = _dtype_max(v.dtype) if op == "min" else _dtype_min(v.dtype)
-            v = torch.where(valid, v, torch.tensor(ident, dtype=v.dtype,
-                                                   device=dev))
+            v = torch.where(valid, v, _scalar(ident, v, "minmax_fill"))
             out[out_name] = torch.full((cap,), ident, dtype=v.dtype,
                                        device=dev).scatter_reduce_(
                 0, seg, v, "amin" if op == "min" else "amax")

@@ -27,6 +27,8 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
+from repro_torch import tracing
+
 __all__ = [
     "Table",
     "Database",
@@ -185,7 +187,15 @@ def from_numpy(cols: Mapping[str, np.ndarray], capacity: int | None = None,
 def to_numpy(t: Table) -> dict[str, np.ndarray]:
     """Table -> exact-size host columns (drops padding, keeps row order)."""
     if t.valid is not None:
-        m = t.valid.cpu().numpy()
-        return {k: v.cpu().numpy()[m] for k, v in t.columns.items()}
-    n = int(t.count)
-    return {k: v[:n].cpu().numpy() for k, v in t.columns.items()}
+        m = _host(t.valid)
+        return {k: _host(v)[m] for k, v in t.columns.items()}
+    with tracing.sync("fetch"):
+        n = int(t.count)
+    return {k: _host(v[:n]) for k, v in t.columns.items()}
+
+
+def _host(v: torch.Tensor) -> np.ndarray:
+    if not v.numel():           # copying nothing waits on nothing
+        return v.cpu().numpy()
+    with tracing.sync("fetch"):
+        return v.cpu().numpy()

@@ -46,6 +46,7 @@ import dataclasses
 import torch
 
 from repro_torch import kernels as K
+from repro_torch import tracing
 from repro_torch.core.table import resolve_device
 from .ref import (bucket_of, bucket_of32, hash_probe32_ref, hash_probe64_ref,
                   murmur32, split64)
@@ -107,8 +108,10 @@ def build_bucket_table64(keys: torch.Tensor, vals: torch.Tensor, buckets: int,
     rows = vals[order]
     # the rows kept, in (bucket, key) order: a bucket's first two go to its
     # head, the rest to the tails, where they land bucket after bucket
-    head = torch.nonzero(ok & (slot < 2)).squeeze(1)
-    tail = torch.nonzero(ok & (slot >= 2)).squeeze(1)
+    with tracing.sync("probe_nonzero"):
+        head = torch.nonzero(ok & (slot < 2)).squeeze(1)
+    with tracing.sync("probe_nonzero"):
+        tail = torch.nonzero(ok & (slot >= 2)).squeeze(1)
     heads = torch.zeros((buckets, 8), dtype=torch.int32, device=dev)
     hb, lane = sb[head], slot[head]
     heads.view(torch.int64)[hb, lane] = sk[head]

@@ -54,11 +54,13 @@ degraded cluster; queued requests re-admit via :meth:`drain_backlog`).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import backend as B
 from repro_torch.core import planner
 from repro_torch.core.table import resolve_device, to_numpy
@@ -70,6 +72,12 @@ __all__ = ["QueryServer", "BatchExecutor", "AdmissionGate",
            "Served", "Degraded", "Shed"]
 
 _PDTYPE = {"int64": torch.int64, "float64": torch.float64}
+
+
+def _read_flag(flag: torch.Tensor) -> bool:
+    """A run's 0-d overflow or corrupt flag, read on the host."""
+    with tracing.sync("flags"):
+        return bool(flag)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,6 +154,7 @@ class QueryServer:
         self.approx_served = 0       # answers served off a sample rung
         self.approx_escalations = 0  # tolerance misses climbed past
         self.approx_refused = 0      # non-estimable shapes served exact
+        self._seq = itertools.count(1)   # a request's number in its spans
         self._tables = B.device_tables(db, self.device)
         # topology state: logical width this server answers on behalf of
         if devices < 1:
@@ -209,7 +218,8 @@ class QueryServer:
         executes it with a fresh context and returns the device result
         Table and the overflow and corrupt flags (0-d device tensors)."""
         self.recompiles += 1
-        info = query.info(db) if infer else None
+        with tracing.span("serve.prepare"):
+            info = query.info(db) if infer else None
         plan, device = query.plan, self.device
         settings = dict(capacity_factor=factor, join_method=self.join_method,
                         wire_format=self.wire_format)
@@ -233,9 +243,12 @@ class QueryServer:
     def _pvals(self, template: PlanTemplate, values: dict) -> dict:
         """A binding as 0-d tensors of each parameter's pinned dtype on the
         server's device; every declared parameter is always present."""
-        return {name: torch.tensor(v, dtype=_PDTYPE[
+        out = {}
+        for name, v in values.items():
+            with tracing.sync("param"):
+                out[name] = torch.tensor(v, dtype=_PDTYPE[
                     template.params[name].dtype], device=self.device)
-                for name, v in values.items()}
+        return out
 
     def submit(self, template: PlanTemplate | int,
                bindings: dict[str, Any] | None = None,
@@ -254,24 +267,28 @@ class QueryServer:
         """
         if isinstance(template, int):
             template = TEMPLATES[template]
-        if infer is None:
-            infer = planner.planner_default()
-        bound = template.bind(**(bindings or {}))
-        pvals = self._pvals(template, bound.values)
-        if tolerance is None:
-            from repro_torch.approx.progressive import approx_default
-            tolerance = approx_default()
-        if tolerance is not None:
-            res = self._submit_approx(template, pvals, infer,
-                                      float(tolerance), confidence)
-            if res is not None:
-                return res
-            self.approx_refused += 1
-        fn = self._executable(template, infer, self.capacity_factor)
-        return to_numpy(self._run_checked(
-            fn, self._tables, pvals, template.name,
-            lambda: self._executable(template, False,
-                                     self.capacity_factor * 4.0)))
+        with tracing.span("serve.submit", template.name, next(self._seq)):
+            if infer is None:
+                infer = planner.planner_default()
+            with tracing.span("serve.bind"):
+                bound = template.bind(**(bindings or {}))
+                pvals = self._pvals(template, bound.values)
+            if tolerance is None:
+                from repro_torch.approx.progressive import approx_default
+                tolerance = approx_default()
+            if tolerance is not None:
+                res = self._submit_approx(template, pvals, infer,
+                                          float(tolerance), confidence)
+                if res is not None:
+                    return res
+                self.approx_refused += 1
+            fn = self._executable(template, infer, self.capacity_factor)
+            out = self._run_checked(
+                fn, self._tables, pvals, template.name,
+                lambda: self._executable(template, False,
+                                         self.capacity_factor * 4.0))
+            with tracing.span("serve.fetch"):
+                return to_numpy(out)
 
     def _run_checked(self, fn, tables, pvals, name, conservative):
         """Run a prepared executable; on overflow re-run it on the
@@ -279,13 +296,15 @@ class QueryServer:
         wire — its own cache key, so healthy traffic keeps the fast entry).
         Raises on a payload integrity failure and on a persisting
         overflow."""
-        out, overflow, corrupt = fn(tables, pvals)
-        if bool(overflow):
+        with tracing.span("serve.execute"):
+            out, overflow, corrupt = fn(tables, pvals)
+        if _read_flag(overflow):
             self.overflow_reruns += 1
-            out, overflow, corrupt = conservative()(tables, pvals)
-        if bool(corrupt):
+            with tracing.span("serve.rerun"):
+                out, overflow, corrupt = conservative()(tables, pvals)
+        if _read_flag(corrupt):
             raise CorruptPayload("serve: payload integrity check failed")
-        if bool(overflow):
+        if _read_flag(overflow):
             raise RuntimeError(
                 f"{name}: overflow persists on the conservative rerun "
                 f"(capacity_factor={self.capacity_factor * 4.0})")
@@ -477,10 +496,10 @@ class BatchExecutor:
                                      template.subplan_signatures(), shared,
                                      added, self)
             out = B.result_table(ex.run(template.query.plan), self.device)
-            if bool(ctx.corrupt):
+            if _read_flag(ctx.corrupt):
                 raise CorruptPayload(
                     "batch: payload integrity check failed")
-            if bool(ctx.overflow):
+            if _read_flag(ctx.overflow):
                 # this request's claims lied: its memo contributions are not
                 # trustworthy state — forfeit them, re-run the request alone
                 # conservatively, and start the NEXT request on a fresh
@@ -497,9 +516,9 @@ class BatchExecutor:
         self.overflow_reruns += 1
         ctx = self._ctx(self.capacity_factor * 4.0)
         out = B.result_table(bound.with_inference(False)(ctx), self.device)
-        if bool(ctx.corrupt):
+        if _read_flag(ctx.corrupt):
             raise CorruptPayload("batch: payload integrity check failed")
-        if bool(ctx.overflow):
+        if _read_flag(ctx.overflow):
             raise RuntimeError(
                 f"{bound.template.name}: overflow persists on the "
                 f"conservative rerun")
